@@ -1,0 +1,128 @@
+"""The full Mask R-CNN forward for a tile batch.
+
+Counterpart of ``treedetection_tpu/models/mask_rcnn.py``: input is an
+already-normalized NHWC batch, output a fixed-budget set of detections with
+uint8 28x28 masks per image, plus the two truncated-pooling counters.
+Backbone -> RPN -> proposal NMS -> box ROIAlign (K1) -> box head ->
+detection NMS -> mask ROIAlign (K1) -> mask head.
+
+The compute dtype is the dtype of the module's parameters: call
+``model.to(torch.bfloat16)`` for the mixed-precision serving path (box
+coordinates, scores and hat matrices stay float32 either way).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from treedetection_tpu_torch.models.anchors import pyramid_anchors
+from treedetection_tpu_torch.models.resnet import ResNetFPN
+from treedetection_tpu_torch.models.roi_heads import (
+    BoxHead, MaskHead, box_inference)
+from treedetection_tpu_torch.models.rpn import RPNHead, generate_proposals
+from treedetection_tpu_torch.ops.roi_align import (
+    PoolFn, multilevel_roi_align_batched)
+
+FPN_STRIDES = (4, 8, 16, 32, 64)
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskRCNNConfig:
+    depth: int = 101
+    num_classes: int = 1
+    input_size: int = 1024
+    score_threshold: float = 0.3
+    nms_threshold: float = 0.5
+    rpn_pre_nms_topk: int = 1000
+    rpn_post_nms_topk: int = 1000
+    rpn_nms_threshold: float = 0.7
+    max_detections: int = 100
+    mask_pool: int = 14
+    box_pool: int = 7
+    anchor_sizes: Tuple[int, ...] = (32, 64, 128, 256, 512)
+    anchor_ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)
+
+
+class ModelOutput(NamedTuple):
+    boxes: torch.Tensor         # (B, D, 4) in input-pixel coords
+    scores: torch.Tensor        # (B, D)
+    classes: torch.Tensor       # (B, D) int32
+    valid: torch.Tensor         # (B, D) bool
+    masks: torch.Tensor         # (B, D, 28, 28) uint8 sigmoid probability * 255
+    roi_overflow: torch.Tensor  # (B,) int32 — VALID detections whose box-pool
+                                # (via the source proposal) or mask-pool
+                                # features stayed truncated
+    prop_overflow: torch.Tensor  # (B,) int32 — truncated proposals in the top
+                                # RPN-score quartile (a truncated proposal can
+                                # silently suppress a detection)
+
+
+class MaskRCNN(nn.Module):
+    """Batched inference Mask R-CNN.  Call with a normalized (B, S, S, 3)
+    float batch; ``S == cfg.input_size``."""
+
+    def __init__(self, cfg: MaskRCNNConfig = MaskRCNNConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.backbone = ResNetFPN(depth=cfg.depth)
+        self.rpn_head = RPNHead(num_anchors=len(cfg.anchor_ratios))
+        self.box_head = BoxHead(in_features=256 * cfg.box_pool ** 2,
+                                num_classes=cfg.num_classes)
+        self.mask_head = MaskHead(num_classes=cfg.num_classes)
+        # float32 anchors per device (not buffers: .to(bf16) must not touch them)
+        self._anchors: Dict[torch.device, list] = {}
+
+    def anchors(self, device: torch.device) -> list:
+        if device not in self._anchors:
+            c = self.cfg
+            self._anchors[device] = [
+                torch.from_numpy(a).to(device) for a in pyramid_anchors(
+                    c.input_size, FPN_STRIDES, sizes=c.anchor_sizes,
+                    ratios=c.anchor_ratios)]
+        return self._anchors[device]
+
+    def forward(self, images: torch.Tensor,
+                roi_pool: Optional[PoolFn] = None) -> ModelOutput:
+        """``roi_pool`` picks the patch pooler of both ROIAlign calls: the K1
+        kernel wrapper by default, or its plain version when passed
+        explicitly."""
+        c = self.cfg
+        dtype = next(self.parameters()).dtype
+        b = images.shape[0]
+        feats = self.backbone(images.to(dtype))              # [P2..P6] NHWC
+        logits, deltas = self.rpn_head(feats)
+        props = generate_proposals(
+            logits, deltas, self.anchors(images.device), c.input_size,
+            c.rpn_pre_nms_topk, c.rpn_post_nms_topk, c.rpn_nms_threshold)
+        k = props.boxes.shape[1]
+
+        feats4 = feats[:4]
+        pooled, box_inexact = multilevel_roi_align_batched(
+            feats4, props.boxes, c.box_pool, FPN_STRIDES[:4], pool=roi_pool)
+        cls_logits, box_deltas = self.box_head(
+            pooled.reshape((b * k,) + pooled.shape[2:]).to(dtype))
+        det = box_inference(
+            cls_logits.reshape(b, k, -1), box_deltas.reshape(b, k, -1),
+            props.boxes, props.scores, c.input_size, c.score_threshold,
+            c.nms_threshold, c.max_detections)
+        d = det.boxes.shape[1]
+
+        mask_pooled, mask_inexact = multilevel_roi_align_batched(
+            feats4, det.boxes, c.mask_pool, FPN_STRIDES[:4], pool=roi_pool)
+        mask_logits = self.mask_head(
+            mask_pooled.reshape((b * d,) + mask_pooled.shape[2:]).to(dtype))
+        probs = torch.sigmoid(mask_logits[..., 0])           # (B*D, 28, 28)
+        masks = torch.round(probs * 255.0).to(torch.uint8)
+        masks = masks.reshape((b, d) + masks.shape[1:])
+        # degraded-output counters (see ModelOutput)
+        det_box_trunc = torch.gather(box_inexact, 1, det.src)
+        degraded = (det.valid & (det_box_trunc | mask_inexact)).sum(dim=1)
+        top_prop_trunc = box_inexact[:, :max(k // 4, 1)].sum(dim=1)
+        return ModelOutput(boxes=det.boxes, scores=det.scores,
+                           classes=det.classes, valid=det.valid, masks=masks,
+                           roi_overflow=degraded.to(torch.int32),
+                           prop_overflow=top_prop_trunc.to(torch.int32))
