@@ -3,16 +3,22 @@
 
     python3 chip_smoke.py            # every phase, one card
 
-Phases (each prints one JSON line; any failure exits non-zero):
+Phases (each prints JSON lines; any failure exits non-zero).  ``--phases``
+takes a comma-separated subset of build,kernel,predictor,model,pipeline:
 
 1. build     — compile the port's native libraries from the sources in the
-               checkout (nvcc for the CUDA kernel, g++ for the host helpers),
-               all compilers started together.
+               checkout (nvcc for the two CUDA kernel sources, g++ for the
+               host helpers), all compilers started together; prints each
+               kernel's ``ptxas`` lines.
 2. kernel    — K1 (the flat ROIAlign patch pooler) against its plain PyTorch
                version at production shapes (box pool N=5120 R=7, mask pool
                N=1000 R=14, fcat for 1024^2 input at batch 10, C=256), in
-               float32 with TF32 off and in bfloat16; errors, medians of CUDA
-               event timings, and the bound computed from this run's inputs.
+               float32 with TF32 off and in bfloat16; K2/K3/K4 (the pairwise
+               dedupe, containment and IoU masks) against their plain versions
+               with EXACT equality at one production row block (8192 rows x
+               32768 columns), at ragged and square shapes, and on
+               adversarial rows; medians of CUDA event timings, and the bound
+               computed from this run's inputs.
 3. predictor — the port's Predictor (R50-FPN, 1024^2, batch 10, 512
                proposals, bf16) on a synthetic 1000x1000 px RGBI GeoTIFF
                tiled into 16 tiles: a first pass, then a timed pass with the
@@ -20,7 +26,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
 4. model     — one batch's real proposals and detections pooled through K1
                and the plain version, and the float32 forward's kept sets with
                each pooler (passed explicitly).
-5. kernels   — the per-kernel summary line, then the card's name and power
+5. pipeline  — ``process_files`` end to end with a dict config and
+               ``TD_PAIRS_DEVICE=1``: a synthetic 1 km^2 sheet (5000x5000 px
+               RGBI at 0.2 m, 400 tiles) with its 1 m nDSM, plus an adjacent
+               200 m sheet so that a seam strip is cut, tiled and predicted;
+               checks the processed GPKG, the K1/K2/K3 launch counts, that
+               the host-grid branch gives the same crowns, and that a second
+               call predicts nothing.
+6. kernels   — the per-kernel summary line, then the card's name and power
                limit, then the final status line.
 
 Imports nothing of JAX.  Exits non-zero without a result when CUDA is not
@@ -31,6 +44,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -46,7 +61,17 @@ NPZ = REPO / "example" / "data" / "model_full.npz"
 H100_BYTES_PER_S = 3.35e12          # HBM3, SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,     # CUDA cores, no tensor cores
               "bfloat16": 989e12}   # dense tensor cores
-PHASES = ("build", "kernel", "predictor", "model")
+PHASES = ("build", "kernel", "predictor", "model", "pipeline")
+PAIRWISE_BLOCK_ROWS, PAIRWISE_COLS = 8192, 32768   # one production row block
+# float32 operations per (row, column) pair, counted from the arithmetic:
+# intersection 9 (2 min, 2 max, 2 sub, 2 clamp, 1 mul); IoU +5 (add, sub,
+# compare, divide, compare); containment +3 (compare, divide, compare);
+# dedupe = IoU + 7 (sub, abs, 2 max, divide, compare, and)
+PAIR_OPS = {"iou": 14, "containment": 12, "dedupe": 21}
+PAIR_KERNELS = {   # mode -> (kernel number, wrapper, the TPU kernel's line)
+    "dedupe": ("K2", "pairwise_dedupe_mask", 64),
+    "containment": ("K3", "pairwise_containment_mask", 57),
+    "iou": ("K4", "pairwise_iou_mask", 49)}
 
 
 def fail(msg: str) -> None:
@@ -70,6 +95,7 @@ def gpu_line() -> str:
 
 def phase_build():
     from treedetection_tpu_torch import native
+    from treedetection_tpu_torch.ops.kernels import pairwise as k234
     from treedetection_tpu_torch.ops.kernels import roi_align as k1
     results, errors = {}, {}
 
@@ -82,16 +108,19 @@ def phase_build():
 
     t0 = time.time()
     threads = [threading.Thread(target=run, args=(n, f)) for n, f in
-               (("roi_pool_flat", k1.build), ("td_native", native.build))]
+               (("roi_pool_flat", k1.build), ("pairwise_boxes", k234.build),
+                ("td_native", native.build))]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         fail(f"build: {errors}")
-    log = results["roi_pool_flat"][0].with_suffix(".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln or "smem" in ln]
+    ptxas = {}
+    for name in ("roi_pool_flat", "pairwise_boxes"):
+        log = results[name][0].with_suffix(".log")
+        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
+                       if "registers" in ln or "spill" in ln or "smem" in ln]
     emit({"phase": "build", "seconds": round(time.time() - t0, 3),
           "each_s": {k: round(v[1], 3) for k, v in results.items()},
           "ptxas": ptxas})
@@ -211,6 +240,121 @@ def phase_kernel(state):
             emit(row)
             summary[(pool, dname)] = row
             del got, ref, p, args
+            torch.cuda.empty_cache()
+
+
+# --- phase 2b: K2/K3/K4 against their plain versions, exactly ----------------
+
+def _crown_boxes(rng, n):
+    """n crown boxes of 2-35 m span scattered so that a few neighbours
+    overlap each, and polygon areas within +-50% of the box area."""
+    extent = 8.0 * math.sqrt(n)
+    c = rng.uniform(0, extent, (n, 2))
+    wh = rng.uniform(2, 35, (n, 2))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], axis=1).astype(np.float32)
+    areas = (wh[:, 0] * wh[:, 1] * rng.uniform(0.5, 1.5, n)).astype(np.float32)
+    return boxes, areas
+
+
+def _adversarial_boxes():
+    """Identical boxes, zero-area boxes, a box exactly inside another (ratio
+    1.0), ratio and IoU exactly 0.9, polygon areas equal (rel = 0) and zero
+    (the 1e-9 floor)."""
+    boxes = np.array([
+        [0, 0, 10, 10], [0, 0, 10, 10], [5, 5, 5, 5], [3, 3, 3, 9],
+        [2, 2, 6, 6], [0, 0, 10, 9], [1, 0, 10, 10], [20, 20, 30, 30],
+        [20, 20, 30, 30], [100, 100, 101, 101]], dtype=np.float32)
+    areas = np.array([50, 50, 0, 0, 16, 90, 90, 0, 0, 1], dtype=np.float32)
+    return boxes, areas
+
+
+def pair_bound(mode, r, n):
+    """Least time the card could take for an (r, n) mask: the bytes it must
+    move (both box arrays read once, the uint8 mask written once) over HBM
+    bandwidth, or its float32 operations over the CUDA-core peak."""
+    width = 5 if mode == "dedupe" else 4
+    nbytes = 4 * width * (r + n) + r * n
+    ops = PAIR_OPS[mode] * r * n
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS["float32"] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": ops}
+
+
+def _pair_calls(pw, mode, b, a, rows, thr):
+    """-> (kernel call, plain call) for one mode; ``rows`` is None (square)
+    or a (start, stop) slice of the boxes."""
+    import torch
+    rb = None if rows is None else b[rows[0]:rows[1]].contiguous()
+    ra = None if rows is None else a[rows[0]:rows[1]].contiguous()
+    if mode == "iou":
+        return (lambda: pw.pairwise_iou_mask(b, thr[0], rows=rb),
+                lambda: pw.iou_mask_reference(b if rb is None else rb, b,
+                                              thr[0]))
+    if mode == "containment":
+        def plain():
+            out = pw.containment_mask_reference(b if rb is None else rb, b,
+                                                thr[0])
+            return out.fill_diagonal_(0) if rb is None else out
+        return (lambda: pw.pairwise_containment_mask(b, thr[0], rows=rb),
+                plain)
+    b5 = torch.cat([b, a[:, None]], dim=1)
+    a5 = b5 if rb is None else torch.cat([rb, ra[:, None]], dim=1)
+    return (lambda: pw.pairwise_dedupe_mask(b, a, thr[0], thr[1], rows=rb,
+                                            row_areas=ra),
+            lambda: pw.dedupe_mask_reference(a5, b5, thr[0], thr[1]))
+
+
+def phase_kernel_pairwise(state):
+    import torch
+    from treedetection_tpu_torch.ops.kernels import pairwise as pw
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(1)
+    big = _crown_boxes(rng, PAIRWISE_COLS)
+    small = _crown_boxes(rng, 1000)
+    adv = _adversarial_boxes()
+    groups = (   # name, (boxes, areas), rows, thresholds per mode, timed
+        ("production_block", big, (0, PAIRWISE_BLOCK_ROWS), None, True),
+        ("ragged_77x1000", small, (400, 477), None, False),
+        ("square_1000", small, None, None, False),
+        ("adversarial_t1.0", adv, None,
+         {"iou": (0.5, 0), "containment": (1.0, 0), "dedupe": (0.5, 1e-6)},
+         False),
+        ("adversarial_t0.9", adv, (2, 9),
+         {"iou": (0.9, 0), "containment": (0.9, 0), "dedupe": (0.9, 0.5)},
+         False))
+    default_thr = {"iou": (0.5, 0), "containment": (0.9, 0),
+                   "dedupe": (0.5, 0.3)}
+    summary = state.setdefault("pairwise", {})
+    for name, (boxes, areas), rows, thr, timed in groups:
+        b = torch.from_numpy(boxes).to(dev)
+        a = torch.from_numpy(areas).to(dev)
+        for mode in ("dedupe", "containment", "iou"):
+            kernel, plain = _pair_calls(pw, mode, b, a, rows,
+                                        (thr or default_thr)[mode])
+            got, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            if got.dtype != torch.uint8 or got.shape != ref.shape:
+                fail(f"kernel {mode} {name}: {got.dtype} {tuple(got.shape)}")
+            mismatches = int((got != ref).sum())
+            row = {"phase": "kernel", "kernel": PAIR_KERNELS[mode][0],
+                   "mode": mode, "group": name, "shape": list(got.shape),
+                   "ones": int(ref.sum()), "mismatches": mismatches,
+                   "tolerance": "exact equality of the uint8 masks"}
+            del got, ref
+            if timed:
+                row["ms"] = _timed_ms(kernel)
+                row["plain_ms"] = _timed_ms(plain, 1, 3)
+                row.update(pair_bound(mode, *row["shape"]))
+                summary[mode] = row
+            emit(row)
+            if mismatches:
+                fail(f"kernel {mode} {name}: {mismatches} entries differ "
+                     f"from the plain version")
+            if name != "ragged_77x1000" and row["ones"] == 0:
+                fail(f"kernel {mode} {name}: the relation is empty, the "
+                     f"comparison is vacuous")
             torch.cuda.empty_cache()
 
 
@@ -417,7 +561,258 @@ def phase_model(state, workdir: Path):
     state["model"] = row
 
 
-# --- phase 5: summary ----------------------------------------------------------
+# --- phase 5: process_files end to end ---------------------------------------
+
+SHEET_ORIGIN = (412000.0, 5318000.0)          # top-left corner, UTM32N-ish
+SHEET_PX = 5000                               # 1 km at 0.2 m: 400 tiles of 50 m
+NEIGHBOUR_PX = 1000                           # the adjacent 200 m sheet
+DISCS_PER_KM2 = 7000
+
+
+def write_synthetic_sheet(rgb_path: Path, ndsm_path: Path, side_px: int,
+                          origin, n_discs: int, seed: int) -> None:
+    """A square RGBI sheet at 0.2 m with crown-like discs (2-8 m radius:
+    darker red/blue, raised NIR so that the NDVI gates pass them) on a
+    lighter ground, and its 1 m nDSM with the same discs standing 5-25 m
+    high.  Discs are drawn in local windows."""
+    from treedetection_tpu_torch.geo import Affine, write_geotiff
+    rng = np.random.default_rng(seed)
+    h = w = side_px
+    img = rng.standard_normal((h, w, 4), dtype=np.float32)
+    img *= np.array([12, 12, 12, 10], dtype=np.float32)
+    img += np.array([150, 160, 120, 110], dtype=np.float32)
+    hm = side_px // 5
+    ndsm = np.zeros((hm, hm), dtype=np.float32)
+    for _ in range(n_discs):
+        cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+        rad_m = rng.uniform(2.0, 8.0)
+        rad = rad_m / 0.2
+        y0, y1 = max(int(cy - rad), 0), min(int(cy + rad) + 1, h)
+        x0, x1 = max(int(cx - rad), 0), min(int(cx + rad) + 1, w)
+        yy, xx = np.mgrid[y0:y1, x0:x1]
+        d2 = ((yy - cy) ** 2 + (xx - cx) ** 2) / rad ** 2
+        inside = d2 < 1.0
+        shade = (0.55 + 0.3 * d2[inside]).astype(np.float32)
+        win = img[y0:y1, x0:x1]
+        win[inside, 0] *= shade * 0.6
+        win[inside, 1] *= shade * 0.85
+        win[inside, 2] *= shade * 0.6
+        win[inside, 3] = np.minimum(win[inside, 3] * 1.8, 255)
+        # the same disc on the 1 m grid, as a dome of 5-25 m
+        top = rng.uniform(5.0, 25.0)
+        my0, my1 = max(int(cy / 5 - rad_m), 0), min(int(cy / 5 + rad_m) + 1, hm)
+        mx0, mx1 = max(int(cx / 5 - rad_m), 0), min(int(cx / 5 + rad_m) + 1, hm)
+        myy, mxx = np.mgrid[my0:my1, mx0:mx1]
+        md2 = ((myy + 0.5 - cy / 5) ** 2 + (mxx + 0.5 - cx / 5) ** 2) / rad_m ** 2
+        dome = np.where(md2 < 1.0, top * (1.0 - 0.5 * md2), 0.0)
+        ndsm[my0:my1, mx0:mx1] = np.maximum(ndsm[my0:my1, mx0:mx1], dome)
+    rgb_path.parent.mkdir(parents=True, exist_ok=True)
+    ndsm_path.parent.mkdir(parents=True, exist_ok=True)
+    write_geotiff(str(rgb_path), np.clip(img, 0, 255).astype(np.uint8),
+                  Affine.from_origin(origin[0], origin[1], 0.2, 0.2),
+                  crs=25832, compress="none")
+    write_geotiff(str(ndsm_path), ndsm,
+                  Affine.from_origin(origin[0], origin[1], 1.0, 1.0),
+                  crs=25832, nodata=-9999.0)
+
+
+def pipeline_config(root: Path):
+    """The example configuration's model and tiling keys as a raw dict
+    (``prepare_config`` fills the rest with its defaults: use_overlap,
+    overlap_postprocess and eager_stitch stay at their defaults)."""
+    return {
+        "image_directory": str(root / "rgb"),
+        "height_data_path": str(root / "nDSM"),
+        "combined_model": str(NPZ),
+        "output_directory": str(root / "out"),
+        "tiles_path": str(root / "tiles"),
+        "image_regex": r"(\d+)\.tif", "height_data_regex": r"(\d+)\.tif",
+        # seam strips: rgbi {base}_{x1}_{y1}_{x2}_{y2}_{end}.tif, height
+        # {base}_{x1y1x2y2}_{end}.tif; the concatenated groups must agree.
+        # Postprocessing looks a stitched layer's height raster up by
+        # matching the IMAGE's stem against the height regexes, so the
+        # height regex is written to accept both spellings.
+        "image_merged_regex": r"(\d+)_(\d+)_(\d+)_(\d+)_(\d+)_\d+\.tif",
+        "height_data_merged_regex":
+            r"(\d+)_(\d+)_?(\d*)_?(\d*)_?(\d*)_\d+\.tif",
+        "model_depth": 50, "model_input_size": 1024,
+        "rpn_post_nms_topk": 512, "max_detections": 100,
+        "pixel_std": [57.375, 57.12, 58.395], "batch_size": 10,
+        "mixed_precision": True, "tile_width": 50, "tile_height": 50,
+        "buffer": 20, "num_workers": 5, "keep_intermediate": True,
+        "ndvi_mean_threshold": 0.1, "ndvi_var_threshold": 0.1}
+
+
+PROCESSED_PROPERTIES = ("Confidence_score", "poly_id", "Area", "TreeHeight",
+                        "Centroid", "Diameter", "is_contained",
+                        "num_contained")
+
+
+def _crown_multiset(gpkg_path):
+    """Processed crowns as a sorted list of (rounded ring, properties)."""
+    from treedetection_tpu_torch.vector import read_gpkg
+    geoms, props, srs = read_gpkg(str(gpkg_path))
+    rows = []
+    for g, p in zip(geoms, props):
+        ring = tuple(map(tuple, np.round(np.asarray(g[0][0]), 4).tolist()))
+        rows.append((ring, tuple(
+            (k, round(p[k], 4) if isinstance(p[k], float) else p[k])
+            for k in PROCESSED_PROPERTIES)))
+    return sorted(rows), props, srs
+
+
+def phase_pipeline(state, workdir: Path):
+    import torch
+    from treedetection_tpu_torch import detection, postprocessing
+    from treedetection_tpu_torch.config import Config, prepare_config
+    from treedetection_tpu_torch.ops.kernels import pairwise as k234
+    from treedetection_tpu_torch.ops.kernels import roi_align as k1
+    from treedetection_tpu_torch.vector import read_gpkg
+    root = workdir / "pipeline"
+    t0 = time.time()
+    big, small = "324125317", "324135317"
+    write_synthetic_sheet(root / "rgb" / f"{big}.tif",
+                          root / "nDSM" / f"{big}.tif", SHEET_PX, SHEET_ORIGIN,
+                          n_discs=int(DISCS_PER_KM2 * (SHEET_PX / 5000) ** 2),
+                          seed=2)
+    write_synthetic_sheet(root / "rgb" / f"{small}.tif",
+                          root / "nDSM" / f"{small}.tif", NEIGHBOUR_PX,
+                          (SHEET_ORIGIN[0] + SHEET_PX * 0.2, SHEET_ORIGIN[1]),
+                          n_discs=int(DISCS_PER_KM2 * (NEIGHBOUR_PX / 5000) ** 2),
+                          seed=3)
+    data_s = time.time() - t0
+
+    os.environ["TD_PAIRS_DEVICE"] = "1"
+    Config.reset()
+    config, _ = prepare_config(pipeline_config(root), str(root))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    postprocessing.LAST_POSTPROCESS_STATS.clear()
+    postprocessing.PAIR_KERNEL_CALLS.clear()
+    k1.launches = 0                           # just before the main path
+    for mode in k234.launches:
+        k234.launches[mode] = 0
+    t0 = time.time()
+    outputs = detection.process_files(config)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"k1": k1.launches, **k234.launches}       # just after
+    pair_calls = list(postprocessing.PAIR_KERNEL_CALLS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    stages = dict(detection.LAST_STAGE_SECONDS)
+    pp_stats = dict(postprocessing.LAST_POSTPROCESS_STATS)
+
+    out = root / "out"
+    tiles_planned, tiles_predicted, batches = {}, {}, 0
+    for meta in sorted((root / "tiles").glob("*.json")):
+        n = len(json.loads(meta.read_text()))
+        tiles_planned[meta.stem] = n
+        tiles_predicted[meta.stem] = len(list(
+            (out / "predictions" / meta.stem).glob("Prediction_*.json")))
+        batches += math.ceil(n / config["batch_size"])
+    strips = sorted(p.name for p in (root / "rgb" / "merged").glob("*.tif"))
+    stitched = {p.stem: len(read_gpkg(str(p))[0])
+                for p in sorted((out / "predictions").glob("*.gpkg"))}
+    written = {}
+    for p in outputs:
+        rows, props, srs = _crown_multiset(p)
+        if srs != 25832:
+            fail(f"pipeline: {p} has SRS {srs}")
+        for prop in props:
+            if set(prop) != set(PROCESSED_PROPERTIES):
+                fail(f"pipeline: properties {sorted(prop)} in {p}")
+        written[Path(p).name] = len(rows)
+    expected = {"dedupe": 0, "containment": 0}
+    for kind, n, blocks in pair_calls:
+        if blocks != math.ceil(n / postprocessing.PAIRWISE_BLOCK):
+            fail(f"pipeline: {kind} call on {n} crowns ran {blocks} blocks")
+        expected[kind] += blocks
+    pred = config.get("_predictor_cache", {}).get(str(NPZ))
+    row = {"phase": "pipeline", "config": "R50-FPN, 1024^2, batch 10, 512 "
+           "proposals, bf16, TD_PAIRS_DEVICE=1",
+           "sheet_px": [SHEET_PX, NEIGHBOUR_PX], "seam_strips": strips,
+           "tiles_planned": tiles_planned, "tiles_predicted": tiles_predicted,
+           "batches": batches, "crowns_stitched": stitched,
+           "crowns_written": written, "wall_s": wall, "data_s": data_s,
+           "tiles_per_s": sum(tiles_predicted.values()) / stages["predict"],
+           "stage_s": stages, "postprocess_phase_s": pp_stats,
+           "pair_kernel_calls": pair_calls, "launches": launches,
+           "peak_device_gib": peak_gib,
+           "roi_overflow": pred.total_roi_overflow if pred else None,
+           "prop_overflow": pred.total_prop_overflow if pred else None}
+    emit(row)
+    sheet_tiles = math.ceil(SHEET_PX * 0.2 / config["tile_width"]) ** 2
+    if tiles_planned.get(big) != sheet_tiles or \
+            tiles_planned != tiles_predicted:
+        fail(f"pipeline: planned {tiles_planned}, predicted {tiles_predicted}")
+    if len(strips) != 1 or len(tiles_planned) != 3:
+        fail(f"pipeline: expected one seam strip and three tiled rasters, "
+             f"got {strips} and {sorted(tiles_planned)}")
+    if f"processed_{big}.gpkg" not in written or \
+            written[f"processed_{big}.gpkg"] == 0:
+        fail(f"pipeline: no crowns written for the sheet: {written}")
+    if pred is None or pred.used_random_init:
+        fail("pipeline: the Predictor was not built from the checkpoint")
+    if launches["k1"] != 2 * batches:
+        fail(f"pipeline: K1 launched {launches['k1']} times for {batches} "
+             f"batches")
+    if launches["dedupe"] != expected["dedupe"] or launches["dedupe"] == 0 \
+            or launches["containment"] != expected["containment"] \
+            or launches["containment"] == 0:
+        fail(f"pipeline: K2/K3 launches {launches} but the crown counts "
+             f"{pair_calls} need {expected}")
+    state["pipeline"] = row
+
+    # (1) the host-grid branch on the same stitched layers
+    del os.environ["TD_PAIRS_DEVICE"]
+    before = dict(k234.launches)
+    images, heights = detection._list_images(config)
+    base_alloc = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    postprocessing.LAST_POSTPROCESS_STATS.clear()
+    t0 = time.time()
+    grid_outputs = postprocessing.process_files_in_directory(
+        config, str(out / "predictions"), images, heights,
+        out_dir=str(root / "out_hostgrid"))
+    torch.cuda.synchronize()
+    grid_s = time.time() - t0
+    stats_peak_gib = (torch.cuda.max_memory_allocated() - base_alloc) / 2 ** 30
+    if k234.launches != before:
+        fail("pipeline: the host-grid branch launched a pairwise kernel")
+    same = {}
+    for p in grid_outputs:
+        name = Path(p).name
+        same[name] = _crown_multiset(p)[0] == _crown_multiset(out / name)[0]
+    emit({"phase": "pipeline_hostgrid", "seconds": grid_s,
+          "same_crowns": same,
+          "stats_peak_device_gib_over_resident": stats_peak_gib,
+          "postprocess_phase_s": dict(postprocessing.LAST_POSTPROCESS_STATS)})
+    if sorted(same) != sorted(written) or not all(same.values()):
+        fail(f"pipeline: device-branch and host-grid crowns differ: {same}")
+
+    # (2) a second call on the finished output predicts nothing
+    os.environ["TD_PAIRS_DEVICE"] = "1"
+    Config.reset()
+    config2, _ = prepare_config(pipeline_config(root), str(root))
+    k1.launches = 0
+    t0 = time.time()
+    outputs2 = detection.process_files(config2)
+    resume_s = time.time() - t0
+    del os.environ["TD_PAIRS_DEVICE"]
+    emit({"phase": "pipeline_resume", "seconds": resume_s,
+          "k1_launches": k1.launches,
+          "predictor_built": "_predictor_cache" in config2,
+          "outputs": [Path(p).name for p in outputs2]})
+    if k1.launches or "_predictor_cache" in config2:
+        fail("pipeline: the resumed run predicted again")
+    if sorted(outputs2) != sorted(outputs):
+        fail("pipeline: the resumed run returned other outputs")
+    for handler in list(config2["logger"].handlers):
+        config2["logger"].removeHandler(handler)
+        handler.close()
+
+
+# --- phase 6: summary ----------------------------------------------------------
 
 def kernels_line(state):
     k = state["k1"]
@@ -425,12 +820,15 @@ def kernels_line(state):
     both = [box, mask]
     t_bytes = sum(r["bytes"] for r in both) / H100_BYTES_PER_S * 1e3
     t_ops = sum(r["flops"] for r in both) / PEAK_FLOPS["bfloat16"] * 1e3
-    return {"kernels": [{
+    pipe = state["pipeline"]
+    kernels = [{
         "name": "roi_pool_patches_flat",
         "route": "cuda",
         "source": "treedetection_tpu_torch/csrc/roi_pool_flat.cu",
         "replaces": "treedetection_tpu/ops/pallas/roi_align_kernel.py:172",
-        "launches": state["predictor"]["k1_launches"],
+        "launches": pipe["launches"]["k1"],
+        "launches_by_path": {"pipeline": pipe["launches"]["k1"],
+                             "predictor": state["predictor"]["k1_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in k.values()),
         "ms": box["ms"] + mask["ms"],
         "plain_ms": box["plain_ms"] + mask["plain_ms"],
@@ -443,7 +841,30 @@ def kernels_line(state):
         "by_call": {f"{p}/{d}": {key: r[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
             for (p, d), r in k.items()},
-    }]}
+    }]
+    for mode, (number, wrapper, line) in PAIR_KERNELS.items():
+        r = state["pairwise"][mode]
+        kernels.append({
+            "name": wrapper,
+            "number": number,
+            "route": "cuda",
+            "source": "treedetection_tpu_torch/csrc/pairwise_boxes.cu",
+            "replaces": f"treedetection_tpu/ops/pallas/iou_kernel.py:{line}",
+            "launches": pipe["launches"][mode],
+            "on_pipeline_path": mode != "iou",
+            "max_abs_err": 0.0 if r["mismatches"] == 0 else 1.0,
+            "mismatches": r["mismatches"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes this function",
+            "per_call_of": f"one row block, {r['shape'][0]} rows x "
+                           f"{r['shape'][1]} columns, float32 in, uint8 out",
+            **({} if mode != "iou" else {"note": (
+                "no caller in either package: launched only by the kernel "
+                "phase, where it is held against its plain version")}),
+        })
+    return {"kernels": kernels}
 
 
 def main() -> None:
@@ -471,12 +892,15 @@ def main() -> None:
             phase_build()
         if "kernel" in phases:
             phase_kernel(state)
+            phase_kernel_pairwise(state)
         if "predictor" in phases:
             phase_predictor(state, work)
             if args.profile is not None:
                 phase_profile(state, work, args.profile)
         if "model" in phases:
             phase_model(state, work)
+        if "pipeline" in phases:
+            phase_pipeline(state, work)
     if set(phases) == set(PHASES):
         emit(kernels_line(state))
     emit({"phase": "done", "seconds": round(time.time() - t_start, 3)})

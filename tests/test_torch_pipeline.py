@@ -23,7 +23,7 @@ from treedetection_tpu_torch.preprocessing import tile_single_file
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "treedetection_tpu_torch"
-FORBIDDEN = ("jax", "flax", "treedetection_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "cv2", "treedetection_tpu")
 
 PRED_CFG = {"model_depth": 50, "model_input_size": 128,
             "mixed_precision": False, "rpn_approx_topk_from": 0,
@@ -40,9 +40,19 @@ def test_tile_metadata_byte_identical(tmp_raster, tmp_path):
         theirs = jax_tile_single_file(tmp_raster["rgb"],
                                       str(tmp_path / "j"), **kw)
         assert Path(ours).read_bytes() == Path(theirs).read_bytes()
-    with pytest.raises(NotImplementedError):
-        tile_single_file(tmp_raster["rgb"], str(tmp_path / "f"),
-                         forest_polys=[np.zeros((4, 2))])
+    # with a forest outline the flags are computed, as the JAX package's
+    forest = [np.array([[411990., 5317890.], [412050., 5317890.],
+                        [412050., 5318010.], [411990., 5318010.]])]
+    ours = tile_single_file(tmp_raster["rgb"], str(tmp_path / "tf"),
+                            buffer=5, tile_width=25, tile_height=25,
+                            forest_polys=forest)
+    theirs = jax_tile_single_file(tmp_raster["rgb"], str(tmp_path / "jf"),
+                                  buffer=5, tile_width=25, tile_height=25,
+                                  forest_polys=forest)
+    assert Path(ours).read_bytes() == Path(theirs).read_bytes()
+    flags = [(m["only_forest"], m["only_urban"])
+             for m in json.loads(Path(ours).read_text()).values()]
+    assert (True, False) in flags and (False, True) in flags
 
 
 def test_geotiff_windows_match_jax(tmp_raster):
@@ -187,29 +197,101 @@ print(json.dumps({{"written": n, "bad": bad}}))
     assert result == {"written": 4, "bad": []}
 
 
-def _imported_roots(path: Path):
+def test_process_files_runs_without_jax_and_yaml(tmp_raster, tmp_path):
+    """``process_files`` of the port on the CPU from a dict config, in a
+    fresh interpreter where jax, flax, yaml, cv2 and treedetection_tpu
+    cannot be imported at all: tiling, prediction, the eager stitch,
+    postprocessing with both rasters (both pair branches), the manifests."""
+    (tmp_path / "model.ckpt").write_text("placeholder")   # random-init path
+    script = f"""
+import sys, json, os
+BLOCKED = ("jax", "jaxlib", "flax", "yaml", "cv2", "treedetection_tpu")
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked in this test: " + name)
+sys.meta_path.insert(0, Block())
+from treedetection_tpu_torch.config import prepare_config
+from treedetection_tpu_torch.detection import process_files
+from treedetection_tpu_torch.vector import read_gpkg
+root = {str(tmp_path)!r}
+counts = []
+for branch in ("0", "1"):
+    os.environ["TD_PAIRS_DEVICE"] = branch
+    cfg = {{"image_directory": "rgb", "height_data_path": "nDSM",
+            "combined_model": "model.ckpt", "output_directory": "out" + branch,
+            "tiles_path": "tiles" + branch, "tile_width": 50,
+            "tile_height": 50, "buffer": 10, "batch_size": 2,
+            "use_overlap": False, "device": "cpu", "model_depth": 50,
+            "model_input_size": 64, "rpn_pre_nms_topk": 50,
+            "rpn_post_nms_topk": 20, "max_detections": 5, "num_workers": 1,
+            "ndvi_mean_threshold": -2.0, "ndvi_var_threshold": 99.0,
+            "height_threshold": 0, "keep_intermediate": True,
+            "mixed_precision": False}}
+    config, _ = prepare_config(cfg, root)
+    outputs = process_files(config)
+    geoms, props, srs = read_gpkg(outputs[0])
+    counts.append([len(outputs), srs, sorted(os.listdir(config["tiles_path"])),
+                   os.path.exists(os.path.join(config["output_directory"],
+                                               "recovery.yaml"))])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print(json.dumps({{"counts": counts, "bad": bad}}))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", script], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["bad"] == []
+    assert result["counts"] == [
+        [1, 25832, ["324125317.json", "recovery.yaml"], True]] * 2
+
+
+def _imports(path: Path):
+    """-> (imported root module, name of the enclosing function or None)."""
     tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            for alias in node.names:
-                yield alias.name.split(".")[0]
-        elif isinstance(node, ast.ImportFrom) and node.module and \
-                node.level == 0:
-            yield node.module.split(".")[0]
-        elif isinstance(node, ast.Call) and node.args and \
-                isinstance(node.args[0], ast.Constant) and \
-                isinstance(node.args[0].value, str) and \
-                getattr(node.func, "attr", getattr(node.func, "id", "")) in (
-                    "import_module", "__import__"):
-            yield node.args[0].value.split(".")[0]
+
+    def walk(node, func):
+        for child in ast.iter_child_nodes(node):
+            inner = child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func
+            if isinstance(child, ast.Import):
+                for alias in child.names:
+                    yield alias.name.split(".")[0], func
+            elif isinstance(child, ast.ImportFrom) and child.module and \
+                    child.level == 0:
+                yield child.module.split(".")[0], func
+            elif isinstance(child, ast.Call) and child.args and \
+                    isinstance(child.args[0], ast.Constant) and \
+                    isinstance(child.args[0].value, str) and \
+                    getattr(child.func, "attr",
+                            getattr(child.func, "id", "")) in (
+                        "import_module", "__import__"):
+                yield child.args[0].value.split(".")[0], func
+            yield from walk(child, inner)
+
+    yield from walk(tree, None)
 
 
 def test_port_never_imports_jax_statically():
+    """No jax, flax, cv2 or treedetection_tpu anywhere in the port or in
+    chip_smoke.py (the string ``treedetection_tpu.`` does not even occur),
+    and yaml only inside ``config.load_config``."""
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 15
+    assert len(files) > 30
     for f in files:
-        bad = [m for m in _imported_roots(f) if m in FORBIDDEN]
+        found = list(_imports(f))
+        bad = [m for m, _ in found if m in FORBIDDEN]
         assert not bad, f"{f.relative_to(REPO)} imports {bad}"
+        for module, func in found:
+            if module == "yaml":
+                assert (f.name, func) == ("config.py", "load_config"), \
+                    f"{f.relative_to(REPO)} imports yaml in {func}"
+        assert "treedetection_tpu." not in f.read_text(), f
+    sources = sorted((PORT / "csrc").glob("*.cu")) + \
+        sorted((PORT / "native").glob("*.cpp"))
+    assert len(sources) == 3
 
 
 @pytest.mark.parametrize("name", ["config.yml", "config_r101.yml"])

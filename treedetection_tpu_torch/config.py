@@ -13,18 +13,49 @@ Differences:
   ``rpn_approx_topk_from`` is kept as a field so configs load unchanged, but
   the port always runs exact top-k.
 * PyYAML is imported inside :func:`load_config` only; callers that pass a
-  dict never need it.
+  dict to :func:`prepare_config` never need it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
+import sys
+import time
 from typing import Any, Dict, Tuple, Union
 
 import torch
 
 LOGGER_NAME = "treedetection_tpu_torch"
+
+
+class Config:
+    """Process-global attribute bag shared by every stage: config dict keys
+    become class attributes.  Kept for API parity with the JAX package; new
+    code should prefer passing the config dict explicitly."""
+
+    _instance = None
+
+    def __new__(cls):
+        if cls._instance is None:
+            cls._instance = super().__new__(cls)
+        return cls._instance
+
+    def _load_into_config(self, config: Dict[str, Any]) -> None:
+        for key, value in config.items():
+            setattr(type(self), key, value)
+
+    @classmethod
+    def reset(cls) -> None:
+        """Drop all loaded attributes (used by tests)."""
+        for key in list(vars(cls)):
+            if not key.startswith("_") and key != "reset":
+                try:
+                    delattr(cls, key)
+                except AttributeError:
+                    pass
+        cls._instance = None
 
 
 def load_config(config_path: str) -> Dict[str, Any]:
@@ -38,6 +69,29 @@ def load_config(config_path: str) -> Dict[str, Any]:
     if not isinstance(config, dict):
         raise ValueError(f"Config file {config_path} must contain a YAML mapping.")
     return config
+
+
+def setup_logging(log_dir: str, debug: bool = False) -> logging.Logger:
+    """Timestamped file log + console handler."""
+    os.makedirs(log_dir, exist_ok=True)
+    logger = logging.getLogger(LOGGER_NAME)
+    logger.setLevel(logging.DEBUG if debug else logging.INFO)
+    # Reset handlers so repeated get_config calls don't stack duplicates.
+    for handler in list(logger.handlers):
+        logger.removeHandler(handler)
+        handler.close()
+    timestamp = time.strftime("%Y%m%d-%H%M%S")
+    file_handler = logging.FileHandler(os.path.join(log_dir, f"run_{timestamp}.log"))
+    file_handler.setLevel(logging.DEBUG)
+    console = logging.StreamHandler(sys.stdout)
+    console.setLevel(logging.DEBUG if debug else logging.INFO)
+    fmt = logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s")
+    file_handler.setFormatter(fmt)
+    console.setFormatter(fmt)
+    logger.addHandler(file_handler)
+    logger.addHandler(console)
+    logger.propagate = False
+    return logger
 
 
 def select_device(raw_device: Union[None, int, str, torch.device] = None
@@ -129,9 +183,9 @@ _DEFAULTS: Tuple[Tuple[str, Any], ...] = (
     ("mixed_precision", True),     # bfloat16 model on the GPU
     ("prefetch_batches", 2),       # Predictor pipeline depth: decode-prefetch
                                    # window AND batches kept in flight
-    ("eager_stitch", True),        # read by the stitching slice; the port's
-                                   # Predictor always writes JSON only
-    ("stitch_cache_images", 8),
+    ("eager_stitch", True),        # stitch transform at predict flush (the
+                                   # stitch stage then skips JSON re-parse)
+    ("stitch_cache_images", 8),    # eager-sink capacity before file fallback
     ("pixel_mean", None),          # BGR mean override (default caffe values)
     ("pixel_std", None),           # BGR std override
 )
@@ -142,6 +196,83 @@ def apply_defaults(config: Dict[str, Any]) -> Dict[str, Any]:
     for key, default in _DEFAULTS:
         config.setdefault(key, default)
     return config
+
+
+def prepare_config(config: Dict[str, Any], base_dir: str
+                   ) -> Tuple[Dict[str, Any], Config]:
+    """Validate and default-fill a raw config dict (in place): resolve the
+    path keys against ``base_dir``, check the inputs and the model files,
+    fill ``_DEFAULTS``, create the output and tile directories, normalize
+    ``device`` to a ``torch.device`` (CUDA requested without a card raises),
+    attach the logger, and load the :class:`Config` singleton.  Everything
+    :func:`get_config` does after reading the YAML; callers that already
+    hold a dict start here."""
+    base = os.path.abspath(base_dir)
+
+    def _resolve(p):
+        if p is None:
+            return None
+        return p if os.path.isabs(p) else os.path.normpath(os.path.join(base, p))
+
+    # NOTE: merged_path is deliberately NOT resolved — it is a bare
+    # subdirectory NAME joined under each image directory (detection.py,
+    # merging.py), not a path; resolving it to an absolute path would make
+    # os.path.join discard the image directory and lose every seam strip.
+    for key in ("image_directory", "height_data_path", "combined_model",
+                "urban_model", "forrest_model", "forrest_outline",
+                "output_directory", "tiles_path", "continue_path"):
+        if config.get(key):
+            config[key] = _resolve(config[key])
+    if config.get("exclude_files"):
+        config["exclude_files"] = [_resolve(p) for p in config["exclude_files"]]
+
+    assert config.get("image_directory") and os.path.exists(config["image_directory"]), (
+        "Config key 'image_directory' is unset or does not point to an existing path.")
+    assert config.get("height_data_path") and os.path.exists(config["height_data_path"]), (
+        "Config key 'height_data_path' (nDSM rasters) is unset or does not point to an existing path.")
+
+    if not config.get("combined_model") or not os.path.exists(config["combined_model"]):
+        assert config.get("urban_model") and os.path.exists(config["urban_model"]), (
+            "No 'combined_model' given, and 'urban_model' is unset or not an existing file.")
+        assert config.get("forrest_model") and os.path.exists(config["forrest_model"]), (
+            "No 'combined_model' given, and 'forrest_model' is unset or not an existing file.")
+        assert config.get("forrest_outline") and os.path.exists(config["forrest_outline"]), (
+            "Two-model routing needs 'forrest_outline', which is unset or not an existing file.")
+
+    config["continue"] = config.get(
+        "continue_path", os.path.join(config.get("output_directory", "./output"), "continue.yml"))
+
+    # the NDVI gates are defaulted, but that changes postprocess filters for
+    # migrated reference configs — warn so the assumption is visible
+    missing_ndvi = [k for k in ("ndvi_mean_threshold", "ndvi_var_threshold")
+                    if k not in config]
+
+    apply_defaults(config)
+
+    os.makedirs(config["output_directory"], exist_ok=True)
+    os.makedirs(config["tiles_path"], exist_ok=True)
+
+    config["device"] = select_device(config.get("device"))
+
+    config["logger"] = setup_logging(
+        os.path.join(config["output_directory"], "logs"), config["debug"])
+    if missing_ndvi:
+        config["logger"].warning(
+            f"Config keys {missing_ndvi} not set; defaulting to the "
+            f"example-config values (0.1). The reference requires these "
+            f"explicitly — review the NDVI gates for your imagery.")
+
+    config_obj = Config()
+    config_obj._load_into_config(config)
+    return config, config_obj
+
+
+def get_config(config_path: str) -> Tuple[Dict[str, Any], Config]:
+    """Load + validate + default-fill the YAML config: returns
+    ``(config_dict, Config_singleton)``.  Relative paths resolve against the
+    config file's directory."""
+    return prepare_config(load_config(config_path),
+                          os.path.dirname(os.path.abspath(config_path)))
 
 
 @dataclasses.dataclass(frozen=True)

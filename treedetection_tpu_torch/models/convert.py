@@ -1,4 +1,5 @@
-"""Checkpoint loading: the JAX package's Flax param trees -> torch state dicts.
+"""Checkpoint loading: Flax param trees and detectron2 state dicts -> the
+port's torch state dict.
 
 Numpy half of ``treedetection_tpu/models/convert.py`` (the ``.npz`` reader
 and the scanned <-> unrolled backbone restack) plus :func:`from_flax_params`,
@@ -13,16 +14,25 @@ mask_rcnn.MaskRCNN`:
 * the ConvTranspose kernel un-flipped back to torch's ``(in, out, kh, kw)``;
 * every leaf widened to float32 (``model_full.npz`` stores float16).
 
-The detectron2 ``.pth`` reader comes in a later slice.
+:func:`convert_detectron2_state_dict` maps a detectron2 Mask R-CNN (R-FPN)
+state dict straight to the same layout, with no Flax tree in between: conv
+and deconv kernels stay as torch stores them, FrozenBatchNorm statistics are
+folded into (scale, bias), and the ``fc1`` input columns are permuted from
+torch's CHW flatten of the pooled feature to the HWC flatten of this model's
+(N, R, R, C) pooled layout.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from treedetection_tpu_torch.models.resnet import STAGE_BLOCKS
+
+BN_EPS = 1e-5  # detectron2 FrozenBatchNorm2d epsilon
 
 
 def _stack_trees(trees):
@@ -143,10 +153,84 @@ def from_flax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """Load a ``.npz`` checkpoint written by the JAX package
-    (``save_checkpoint_npz``) as a ``MaskRCNN`` state dict."""
-    if not path.endswith(".npz"):
-        raise ValueError(f"unsupported checkpoint format: {path} (the port "
-                         f"reads .npz; .pth comes in a later slice)")
-    return from_flax_params(_load_npz_checkpoint(path, dtype=None))
+def _to_numpy(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def fold_frozen_bn(gamma: np.ndarray, beta: np.ndarray, mean: np.ndarray,
+                   var: np.ndarray, eps: float = BN_EPS
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """(gamma, beta, running_mean, running_var) -> (scale, bias) such that
+    ``x * scale + bias == (x - mean) / sqrt(var + eps) * gamma + beta``."""
+    scale = gamma / np.sqrt(var + eps)
+    return scale, beta - mean * scale
+
+
+def fc1_weight_chw_to_hwc(w: np.ndarray, channels: int, resolution: int
+                          ) -> np.ndarray:
+    """Permute fc1 input columns from torch's CHW flatten of the (C, R, R)
+    pooled feature to the HWC flatten of (R, R, C); stays (out, in)."""
+    out_dim = w.shape[0]
+    w4 = w.reshape(out_dim, channels, resolution, resolution)
+    return np.transpose(w4, (0, 2, 3, 1)).reshape(out_dim, -1)
+
+
+def convert_detectron2_state_dict(sd: Mapping[str, Any], depth: int = 101,
+                                  fpn_channels: int = 256, box_pool: int = 7
+                                  ) -> Dict[str, torch.Tensor]:
+    """Map a detectron2 Mask R-CNN (R-FPN) state dict to the ``MaskRCNN``
+    state dict (float32)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def plain(dst: str, src: str) -> None:
+        out[f"{dst}.weight"] = _to_numpy(sd[f"{src}.weight"])
+        out[f"{dst}.bias"] = _to_numpy(sd[f"{src}.bias"])
+
+    def convbn(dst: str, src: str) -> None:
+        out[f"{dst}.conv.weight"] = _to_numpy(sd[f"{src}.weight"])
+        scale, bias = fold_frozen_bn(
+            *(_to_numpy(sd[f"{src}.norm.{k}"])
+              for k in ("weight", "bias", "running_mean", "running_var")))
+        out[f"{dst}.norm.scale"] = scale
+        out[f"{dst}.norm.bias"] = bias
+
+    convbn("backbone.bottom_up.stem", "backbone.bottom_up.stem.conv1")
+    for stage, n_blocks in enumerate(STAGE_BLOCKS[depth]):
+        for i in range(n_blocks):
+            block = f"backbone.bottom_up.res{stage + 2}.{i}"
+            for conv in ("conv1", "conv2", "conv3"):
+                convbn(f"{block}.{conv}", f"{block}.{conv}")
+            if f"{block}.shortcut.weight" in sd:
+                convbn(f"{block}.shortcut", f"{block}.shortcut")
+    for lvl in range(2, 6):
+        plain(f"backbone.fpn.lateral{lvl}", f"backbone.fpn_lateral{lvl}")
+        plain(f"backbone.fpn.output{lvl}", f"backbone.fpn_output{lvl}")
+    for name in ("conv", "objectness_logits", "anchor_deltas"):
+        plain(f"rpn_head.{name}", f"proposal_generator.rpn_head.{name}")
+    plain("box_head.fc1", "roi_heads.box_head.fc1")
+    out["box_head.fc1.weight"] = fc1_weight_chw_to_hwc(
+        out["box_head.fc1.weight"], fpn_channels, box_pool)
+    plain("box_head.fc2", "roi_heads.box_head.fc2")
+    plain("box_head.cls_score", "roi_heads.box_predictor.cls_score")
+    plain("box_head.bbox_pred", "roi_heads.box_predictor.bbox_pred")
+    for name in ("mask_fcn1", "mask_fcn2", "mask_fcn3", "mask_fcn4", "deconv",
+                 "predictor"):
+        plain(f"mask_head.{name}", f"roi_heads.mask_head.{name}")
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+            for k, v in out.items()}
+
+
+def load_checkpoint(path: str, depth: int = 101) -> Dict[str, torch.Tensor]:
+    """Load a model checkpoint as a ``MaskRCNN`` state dict: a ``.npz``
+    written by the JAX package (``save_checkpoint_npz``) or a detectron2
+    ``.pth``/``.pkl`` (``depth`` names its ResNet)."""
+    if path.endswith(".pth") or path.endswith(".pkl"):
+        blob = torch.load(path, map_location="cpu", weights_only=False)
+        sd = blob.get("model", blob) if isinstance(blob, dict) else blob
+        return convert_detectron2_state_dict(sd, depth=depth)
+    if path.endswith(".npz"):
+        return from_flax_params(_load_npz_checkpoint(path, dtype=None))
+    raise ValueError(f"unsupported checkpoint format: {path} (the port reads "
+                     f".npz and detectron2 .pth/.pkl)")

@@ -4,6 +4,7 @@
   compression (the mask -> polygon step of the Predictor)
 * ``td_resize_threshold`` — fused bilinear resize + threshold of a soft mask
 * ``td_lzw_decode`` — TIFF LZW fast path for the GeoTIFF codec
+* ``td_simplify_dp`` — Douglas-Peucker keep flags for crown rings
 
 The library is compiled from ``contour.cpp`` with g++ at first use into the
 package's build directory (``treedetection_tpu_torch.build``).  There is no
@@ -55,6 +56,10 @@ def get_lib() -> ctypes.CDLL:
             lib.td_lzw_decode.restype = ctypes.c_int
             lib.td_lzw_decode.argtypes = [
                 _U8P, ctypes.c_long, _U8P, ctypes.c_long]
+            lib.td_simplify_dp.restype = ctypes.c_int
+            lib.td_simplify_dp.argtypes = [
+                ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+                ctypes.c_double, _U8P]
             _lib = lib
     return _lib
 
@@ -112,3 +117,15 @@ def lzw_decode(data: bytes, expected: int) -> Optional[bytes]:
     if rc < 0:
         return None
     return dst[:rc].tobytes()
+
+
+def simplify_keep_flags(ring: np.ndarray, tolerance: float) -> np.ndarray:
+    """Douglas-Peucker keep flags for an OPEN (N, 2) float64 ring: the same
+    keep set as the numpy stack version in ``vector.polygon``."""
+    ring = np.ascontiguousarray(ring, dtype=np.float64)
+    n = len(ring)
+    keep = np.empty(n, dtype=np.uint8)
+    get_lib().td_simplify_dp(
+        ring.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), n,
+        ctypes.c_double(tolerance * tolerance), keep.ctypes.data_as(_U8P))
+    return keep.view(bool)

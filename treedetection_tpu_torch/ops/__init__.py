@@ -1,3 +1,3 @@
 """Tensor ops of the port: boxes, NMS, ROIAlign, image transforms
-(counterpart of ``treedetection_tpu.ops``); hand-written kernels live in
+(counterpart of ``treedetection_tpu/ops``); hand-written kernels live in
 ``ops.kernels``."""

@@ -31,6 +31,18 @@ def box_iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(union > 0, inter / union, torch.zeros_like(inter))
 
 
+def pairwise_intersection_over_area(a: torch.Tensor,
+                                    b: torch.Tensor) -> torch.Tensor:
+    """(N, M) intersection / area(a): the containment ratio of the crown
+    containment relation (0 where area(a) is 0)."""
+    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
+    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = torch.clamp(rb - lt, min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    area = box_area(a)[:, None]
+    return torch.where(area > 0, inter / area, torch.zeros_like(inter))
+
+
 def apply_deltas(deltas: torch.Tensor, boxes: torch.Tensor,
                  weights: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
                  ) -> torch.Tensor:
