@@ -4,16 +4,19 @@
     python3 chip_smoke.py            # every phase, one card
 
 Phases (each prints JSON lines; any failure exits non-zero).  ``--phases``
-takes a comma-separated subset of build,kernel,predictor,model,pipeline:
+takes a comma-separated subset of
+build,kernel,predictor,model,pipeline,pipeline_two_model:
 
 1. build     — compile the port's native libraries from the sources in the
-               checkout (nvcc for the two CUDA kernel sources, g++ for the
-               host helpers), all compilers started together; prints each
+               checkout (one nvcc per CUDA kernel source, g++ for the host
+               helpers), all compilers started together; prints each
                kernel's ``ptxas`` lines.
-2. kernel    — K1 (the flat ROIAlign patch pooler) against its plain PyTorch
-               version at production shapes (box pool N=5120 R=7, mask pool
-               N=1000 R=14, fcat for 1024^2 input at batch 10, C=256), in
-               float32 with TF32 off and in bfloat16; K2/K3/K4 (the pairwise
+2. kernel    — K1, K5 and K6 (the flat, per-level and image-resident
+               ROIAlign patch poolers; K6 at c_split 1 and 2) against their
+               plain PyTorch versions and against each other on the same
+               boxes at production shapes (box pool N=5120 R=7, mask pool
+               N=1000 R=14, 1024^2 input at batch 10, C=256), in float32
+               with TF32 off and in bfloat16; K2/K3/K4 (the pairwise
                dedupe, containment and IoU masks) against their plain versions
                with EXACT equality at one production row block (8192 rows x
                32768 columns), at ragged and square shapes, and on
@@ -25,7 +28,8 @@ takes a comma-separated subset of build,kernel,predictor,model,pipeline:
                kernel launch counts reset just before it and read just after.
 4. model     — one batch's real proposals and detections pooled through K1
                and the plain version, and the float32 forward's kept sets with
-               each pooler (passed explicitly).
+               each pooler (passed explicitly) and under each of the three
+               pooler layouts (``TD_ROI_FLAT``, ``TD_ROI_RESIDENT``).
 5. pipeline  — ``process_files`` end to end with a dict config and
                ``TD_PAIRS_DEVICE=1``: a synthetic 1 km^2 sheet (5000x5000 px
                RGBI at 0.2 m, 400 tiles) with its 1 m nDSM, plus an adjacent
@@ -33,7 +37,16 @@ takes a comma-separated subset of build,kernel,predictor,model,pipeline:
                checks the processed GPKG, the K1/K2/K3 launch counts, that
                the host-grid branch gives the same crowns, and that a second
                call predicts nothing.
-6. kernels   — the per-kernel summary line, then the card's name and power
+6. pipeline_two_model — ``process_files`` in its two-model configuration
+               (``urban_model``, ``forrest_model``, a forest outline over the
+               west half of the sheet) with ``TD_ROI_FLAT=0`` on the same
+               synthetic 1 km^2 sheet: checks both prediction roots, the
+               tiles each pass skipped, the fused layer, K5's launch count
+               (K1's is 0), and that a second call predicts nothing; then
+               one Predictor pass over the 16-tile raster of phase 3 under
+               ``TD_ROI_RESIDENT=1`` (K6), held against that phase's flat
+               pass.
+7. kernels   — the per-kernel summary line, then the card's name and power
                limit, then the final status line.
 
 Imports nothing of JAX.  Exits non-zero without a result when CUDA is not
@@ -61,7 +74,9 @@ NPZ = REPO / "example" / "data" / "model_full.npz"
 H100_BYTES_PER_S = 3.35e12          # HBM3, SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,     # CUDA cores, no tensor cores
               "bfloat16": 989e12}   # dense tensor cores
-PHASES = ("build", "kernel", "predictor", "model", "pipeline")
+PHASES = ("build", "kernel", "predictor", "model", "pipeline",
+          "pipeline_two_model")
+ROI_LIBRARIES = ("roi_pool_flat", "roi_pool_levels", "roi_pool_resident")
 PAIRWISE_BLOCK_ROWS, PAIRWISE_COLS = 8192, 32768   # one production row block
 # float32 operations per (row, column) pair, counted from the arithmetic:
 # intersection 9 (2 min, 2 max, 2 sub, 2 clamp, 1 mul); IoU +5 (add, sub,
@@ -91,6 +106,46 @@ def gpu_line() -> str:
         f"nvidia-smi failed: {out.stderr.strip()}"
 
 
+LAYOUT_ENV = {"flat": {}, "levels": {"TD_ROI_FLAT": "0"},
+              "resident": {"TD_ROI_RESIDENT": "1"}}
+
+
+def _clear_layout_env() -> None:
+    for name in ("TD_ROI_FLAT", "TD_ROI_RESIDENT", "TD_ROI_SMALL",
+                 "TD_ROI_LARGE_FRAC", "TD_ROI_EXACT_FRAC"):
+        os.environ.pop(name, None)
+
+
+class layout_env:
+    """Set the pooler-layout variables of one layout for the block, and
+    restore what was there before."""
+
+    def __init__(self, layout: str):
+        self.values = LAYOUT_ENV[layout]
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k)
+                      for k in ("TD_ROI_FLAT", "TD_ROI_RESIDENT")}
+        for k in self.saved:
+            os.environ.pop(k, None)
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def _reset_roi_launches(k) -> None:
+    k.launches = k.launches_patches = k.launches_resident = 0
+
+
+def _roi_launches(k):
+    return {"k1": k.launches, "k5": k.launches_patches,
+            "k6": k.launches_resident}
+
+
 # --- phase 1: build ----------------------------------------------------------
 
 def phase_build():
@@ -107,9 +162,9 @@ def phase_build():
             errors[name] = repr(exc)
 
     t0 = time.time()
-    threads = [threading.Thread(target=run, args=(n, f)) for n, f in
-               (("roi_pool_flat", k1.build), ("pairwise_boxes", k234.build),
-                ("td_native", native.build))]
+    jobs = [(name, lambda name=name: k1.build(name)) for name in ROI_LIBRARIES]
+    jobs += [("pairwise_boxes", k234.build), ("td_native", native.build)]
+    threads = [threading.Thread(target=run, args=job) for job in jobs]
     for t in threads:
         t.start()
     for t in threads:
@@ -117,7 +172,7 @@ def phase_build():
     if errors:
         fail(f"build: {errors}")
     ptxas = {}
-    for name in ("roi_pool_flat", "pairwise_boxes"):
+    for name in ROI_LIBRARIES + ("pairwise_boxes",):
         log = results[name][0].with_suffix(".log")
         ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
                        if "registers" in ln or "spill" in ln or "smem" in ln]
@@ -154,23 +209,27 @@ def _synthetic_boxes(rng, b, n, img=1024.0):
     return np.clip(out, 0, img).astype(np.float32)
 
 
-def k1_bound(inputs, resolution, dtype_name):
-    """Least time the card could take: the larger of the bytes the function
-    must move (touched part of fcat, the index and hat inputs, the output)
-    over HBM bandwidth and its FLOPs over the peak for the type."""
+def _touched_cells(shape2d, rows, cols, patch, cpatch):
+    """Number of (row, column) cells of one buffer that the windows at
+    (rows, cols) cover."""
     import torch
-    p = inputs
-    n, c = p.rows.shape[0], p.kcat.shape[-1]
-    patch, cpatch = p.ay.shape[-1], p.ax.shape[-1]
-    touched = torch.zeros(p.kcat.shape[:2], dtype=torch.bool,
-                          device=p.kcat.device)
-    ry = p.rows.long()[:, None] + torch.arange(patch, device=touched.device)
-    cx = p.cols.long()[:, None] + torch.arange(cpatch, device=touched.device)
-    for s in range(0, n, 1024):
+    touched = torch.zeros(tuple(shape2d), dtype=torch.bool, device=rows.device)
+    ry = rows.long()[:, None] + torch.arange(patch, device=rows.device)
+    cx = cols.long()[:, None] + torch.arange(cpatch, device=rows.device)
+    for s in range(0, rows.shape[0], 1024):
         touched[ry[s:s + 1024, :, None], cx[s:s + 1024, None, :]] = True
-    item = p.kcat.element_size()
-    nbytes = (int(touched.sum()) * c * item + 8 * n
-              + 4 * (p.ay.numel() + p.ax.numel())
+    return int(touched.sum())
+
+
+def pool_bound(feature_bytes, n, c, item, ay, ax, resolution, dtype_name,
+               index_bytes, hat_reads=1):
+    """Least time the card could take for one pooling call: the larger of
+    the bytes the function must move (``feature_bytes`` of the feature
+    buffers, the index and hat inputs, the output) over HBM bandwidth and
+    its FLOPs over the peak for the type."""
+    patch, cpatch = ay.shape[-1], ax.shape[-1]
+    nbytes = (feature_bytes + index_bytes * n
+              + 4 * hat_reads * (ay.numel() + ax.numel())
               + n * resolution * resolution * c * item)
     flops = 2 * n * c * (resolution * patch * cpatch
                          + resolution * resolution * cpatch)
@@ -179,6 +238,46 @@ def k1_bound(inputs, resolution, dtype_name):
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
+
+
+def k1_bound(inputs, resolution, dtype_name):
+    """K1: the touched part of fcat, 8 index bytes per box."""
+    p = inputs
+    c, item = p.kcat.shape[-1], p.kcat.element_size()
+    cells = _touched_cells(p.kcat.shape[:2], p.rows, p.cols, p.ay.shape[-1],
+                           p.ax.shape[-1])
+    return pool_bound(cells * c * item, p.rows.shape[0], c, item, p.ay, p.ax,
+                      resolution, dtype_name, 8)
+
+
+def k5_bound(inputs, resolution, dtype_name):
+    """K5: the touched part of each level buffer (K1's bytes less the width
+    padding), 12 index bytes per box."""
+    p = inputs
+    c, item = p.kpadded[0].shape[-1], p.kpadded[0].element_size()
+    cells = 0
+    for level, buf in enumerate(p.kpadded):
+        m = p.meta[p.meta[:, 0] == level]
+        cells += _touched_cells(buf.shape[:2], m[:, 1], m[:, 2],
+                                p.ay.shape[-1], p.ax.shape[-1])
+    return pool_bound(cells * c * item, p.meta.shape[0], c, item, p.ay, p.ax,
+                      resolution, dtype_name, 12)
+
+
+def k6_bound(inputs, resolution, dtype_name):
+    """K6, by its contract: every image's unpadded sections once per C-block
+    (each cell once in all), the hats once per C-block, 12 index bytes per
+    box, the output (padding boxes included: they are inputs too)."""
+    from treedetection_tpu_torch.ops.kernels.roi_align import (
+        resident_section_bytes)
+    r = inputs
+    c, item = r.kpadded[0].shape[-1], r.kpadded[0].element_size()
+    patch, cpatch = r.ay.shape[-1], r.ax.shape[-1]
+    hs = [k.shape[0] // r.n_images - patch for k in r.kpadded]
+    ws = [k.shape[1] - cpatch for k in r.kpadded]
+    feature_bytes = r.n_images * resident_section_bytes(hs, ws, c, patch, item)
+    return pool_bound(feature_bytes, r.meta.shape[0], c, item, r.ay, r.ax,
+                      resolution, dtype_name, 12, hat_reads=r.c_split)
 
 
 def tolerance(ref, dtype_name):
@@ -204,42 +303,86 @@ def check_close(got, ref, dtype_name):
     return ok, err, {"atol": atol, "rtol": rtol}
 
 
+def _cut_padding(out, r):
+    """Drop the padding boxes at the end of each image's list."""
+    if not r.pad_per:
+        return out
+    per = out.shape[0] // r.n_images
+    return out.reshape((r.n_images, per) + out.shape[1:])[
+        :, :per - r.pad_per].reshape((-1,) + out.shape[1:])
+
+
 def phase_kernel(state):
     import torch
-    from treedetection_tpu_torch.ops.kernels.roi_align import (
-        roi_pool_patches_flat, roi_pool_patches_flat_reference)
-    from treedetection_tpu_torch.ops.roi_align import flat_pool_inputs
+    from treedetection_tpu_torch.ops.kernels import roi_align as k
+    from treedetection_tpu_torch.ops.roi_align import (
+        PATCH, flat_pool_inputs, level_pool_inputs, resident_c_split,
+        resident_pool_inputs)
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     b, c = 10, 256
     feats32 = [torch.from_numpy(rng.standard_normal(
         (b, 1024 // s, 1024 // s, c)).astype(np.float32)).to(dev)
         for s in (4, 8, 16, 32)]
-    summary = state.setdefault("k1", {})
+    summary = state.setdefault("roi", {})
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         feats = [f.to(dtype) for f in feats32]
         for pool, n, r in (("box", 512, 7), ("mask", 100, 14)):
             boxes = torch.from_numpy(_synthetic_boxes(rng, b, n)).to(dev)
-            p = flat_pool_inputs(feats, boxes, r, (4, 8, 16, 32))
-            args = (p.kcat, p.rows, p.cols, p.ay, p.ax, r)
-            got = roi_pool_patches_flat(*args)
-            ref = roi_pool_patches_flat_reference(*args)
-            torch.cuda.synchronize()
-            ok, err, tol = check_close(got, ref, dname)
-            if not ok or not torch.isfinite(got.float()).all():
-                fail(f"kernel {pool} {dname}: max abs err {err} vs {tol}")
-            ms = _timed_ms(lambda: roi_pool_patches_flat(*args))
-            plain_ms = _timed_ms(
-                lambda: roi_pool_patches_flat_reference(*args), 1, 3)
-            bound = k1_bound(p, r, dname)
-            row = {"phase": "kernel", "pool": pool, "dtype": dname,
-                   "n": b * n, "resolution": r,
-                   "fcat_shape": list(p.kcat.shape), "max_abs_err": err,
-                   "tolerance": tol, "ms": ms, "plain_ms": plain_ms, **bound}
-            emit(row)
-            summary[(pool, dname)] = row
-            del got, ref, p, args
+            flat = flat_pool_inputs(feats, boxes, r, (4, 8, 16, 32))
+            lvl = level_pool_inputs(feats, boxes, r, (4, 8, 16, 32))
+            res = {cs: resident_pool_inputs(lvl, r, 2, b, c_split=cs)
+                   for cs in (1, 2)}
+            picked = resident_c_split(lvl.kpadded, b)
+            # kernel -> (wrapper, plain version, arguments, bound, shapes)
+            calls = {"k1": (k.roi_pool_patches_flat,
+                            k.roi_pool_patches_flat_reference,
+                            (flat.kcat, flat.rows, flat.cols, flat.ay,
+                             flat.ax, r), k1_bound(flat, r, dname),
+                            {"fcat_shape": list(flat.kcat.shape)}),
+                     "k5": (k.roi_pool_patches, k.roi_pool_patches_reference,
+                            (lvl.kpadded, lvl.meta, lvl.ay, lvl.ax, r),
+                            k5_bound(lvl, r, dname),
+                            {"buffer_shapes": [list(f.shape[:2])
+                                               for f in lvl.kpadded]})}
+            for cs, ri in res.items():
+                calls[f"k6_c{cs}"] = (
+                    k.roi_pool_resident, k.roi_pool_resident_reference,
+                    (ri.kpadded, ri.meta, ri.ay, ri.ax, r, PATCH, ri.chunk,
+                     b, cs), k6_bound(ri, r, dname),
+                    {"chunk": ri.chunk, "pad_per_image": ri.pad_per,
+                     "n_padded": int(ri.meta.shape[0]), "c_split": cs,
+                     "c_split_the_launcher_picks": picked})
+            k1_out = None
+            for name, (fn, plain, args, bound, shapes) in calls.items():
+                got = fn(*args)
+                ref = plain(*args)
+                torch.cuda.synchronize()
+                ok, err, tol = check_close(got, ref, dname)
+                if not ok or not torch.isfinite(got.float()).all():
+                    fail(f"kernel {name} {pool} {dname}: max abs err {err} "
+                         f"vs {tol}")
+                row = {"phase": "kernel", "kernel": name, "pool": pool,
+                       "dtype": dname, "n": b * n, "resolution": r, **shapes,
+                       "max_abs_err": err, "tolerance": tol}
+                if name == "k1":
+                    k1_out = got
+                else:   # the same boxes through another layout
+                    mine = _cut_padding(got, res[int(name[-1])]) \
+                        if name.startswith("k6") else got
+                    ok, err_k1, _ = check_close(mine, k1_out, dname)
+                    row["max_abs_err_vs_k1"] = err_k1
+                    if not ok:
+                        fail(f"kernel {name} {pool} {dname}: differs from K1 "
+                             f"on the same boxes by {err_k1} vs {tol}")
+                del got, ref
+                row["ms"] = _timed_ms(lambda: fn(*args))
+                row["plain_ms"] = _timed_ms(lambda: plain(*args), 1, 3)
+                row.update(bound)
+                emit(row)
+                summary.setdefault(name, {})[(pool, dname)] = row
+            del k1_out, flat, lvl, res, calls
             torch.cuda.empty_cache()
 
 
@@ -401,6 +544,7 @@ def phase_predictor(state, workdir: Path):
     from treedetection_tpu_torch import prediction
     from treedetection_tpu_torch.ops.kernels import roi_align as k1
     from treedetection_tpu_torch.preprocessing import tile_single_file
+    _clear_layout_env()
     tif = workdir / "rgb" / "324125317.tif"
     tif.parent.mkdir(parents=True)
     write_synthetic_raster(tif)
@@ -423,12 +567,13 @@ def phase_predictor(state, workdir: Path):
 
     out2 = workdir / "pred_timed"
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = 0                       # just before the main path
+    _reset_roi_launches(k1)               # just before the main path
     t0 = time.time()
     written = pred(str(tif), meta, str(out2))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = k1.launches                # just after
+    counts = _roi_launches(k1)            # just after
+    launches = counts["k1"]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     stats = dict(prediction.LAST_RUN_STATS)
     batches = int(stats["batches"])
@@ -458,10 +603,12 @@ def phase_predictor(state, workdir: Path):
         fail(f"predictor: wrote {written} tiles, {len(files)} files")
     if crowns == 0:
         fail("predictor: no crowns written on the synthetic raster")
-    if launches != 2 * batches:
-        fail(f"predictor: K1 launched {launches} times for {batches} batches")
+    if launches != 2 * batches or counts["k5"] or counts["k6"]:
+        fail(f"predictor: launches {counts} for {batches} batches in the "
+             f"default layout (expected K1 twice per batch and no other)")
     state["predictor"] = row
     state["tif"], state["meta"], state["pred"] = tif, meta, pred
+    state["pred_timed_dir"] = out2
 
 
 def phase_profile(state, workdir: Path, out_dir: Path):
@@ -513,6 +660,7 @@ def phase_model(state, workdir: Path):
     from treedetection_tpu_torch import prediction
     from treedetection_tpu_torch.models.mask_rcnn import FPN_STRIDES
     from treedetection_tpu_torch.models.rpn import generate_proposals
+    from treedetection_tpu_torch.ops.kernels import roi_align as roi_kernels
     from treedetection_tpu_torch.ops.kernels.roi_align import (
         roi_pool_patches_flat, roi_pool_patches_flat_reference)
     from treedetection_tpu_torch.ops.roi_align import flat_pool_inputs
@@ -548,14 +696,43 @@ def phase_model(state, workdir: Path):
         if out_k.valid.any() else 0.0
     score_err = float((out_k.scores - out_p.scores).abs().max())
     mask_err = int((out_k.masks.int() - out_p.masks.int()).abs().max())
+    # the same forward with the pooler picked by the environment: the three
+    # layouts against the K1 forward above, at the same tolerances
+    layouts = {}
+    for layout, kernel in (("flat", "k1"), ("levels", "k5"),
+                           ("resident", "k6")):
+        _reset_roi_launches(roi_kernels)
+        with layout_env(layout), torch.no_grad():
+            out_l = model(x)
+        torch.cuda.synchronize()
+        counts = _roi_launches(roi_kernels)
+        same = torch.equal(out_l.valid, out_k.valid)
+        layouts[layout] = {
+            "launches": counts, "kept": int(out_l.valid.sum()),
+            "same_kept_set": same,
+            "max_box_err_px": float((out_l.boxes - out_k.boxes).abs()[
+                out_k.valid].max()) if same and out_k.valid.any() else None,
+            "max_score_err": float((out_l.scores - out_k.scores).abs().max()),
+            "max_mask_err_u8": int((out_l.masks.int()
+                                    - out_k.masks.int()).abs().max()),
+            "roi_overflow": int(out_l.roi_overflow.sum()),
+            "prop_overflow": int(out_l.prop_overflow.sum())}
+        if counts != {**{"k1": 0, "k5": 0, "k6": 0}, kernel: 2}:
+            fail(f"model: layout {layout} launched {counts}, expected "
+                 f"{kernel} twice")
     row = {"phase": "model", "dtype": "float32", "tf32": False,
            "pool_checks": errs, "kept_k1": int(out_k.valid.sum()),
            "kept_plain": int(out_p.valid.sum()), "same_kept_set": same_valid,
            "max_box_err_px": box_err, "max_score_err": score_err,
-           "max_mask_err_u8": mask_err}
+           "max_mask_err_u8": mask_err, "layouts": layouts}
     emit(row)
     if not same_valid or box_err > 1e-2 or score_err > 1e-4 or mask_err > 2:
         fail("model: K1 and the plain pooler disagree inside the forward")
+    for layout, r in layouts.items():
+        if not r["same_kept_set"] or r["max_box_err_px"] > 1e-2 or \
+                r["max_score_err"] > 1e-4 or r["max_mask_err_u8"] > 2:
+            fail(f"model: the {layout} layout disagrees with K1 inside the "
+                 f"forward: {r}")
     if int(out_k.valid.sum()) == 0:
         fail("model: no detections in the compared batch")
     state["model"] = row
@@ -681,7 +858,9 @@ def phase_pipeline(state, workdir: Path):
                           n_discs=int(DISCS_PER_KM2 * (NEIGHBOUR_PX / 5000) ** 2),
                           seed=3)
     data_s = time.time() - t0
+    state["sheet"] = (root / "rgb" / f"{big}.tif", root / "nDSM" / f"{big}.tif")
 
+    _clear_layout_env()
     os.environ["TD_PAIRS_DEVICE"] = "1"
     Config.reset()
     config, _ = prepare_config(pipeline_config(root), str(root))
@@ -689,14 +868,14 @@ def phase_pipeline(state, workdir: Path):
     torch.cuda.reset_peak_memory_stats()
     postprocessing.LAST_POSTPROCESS_STATS.clear()
     postprocessing.PAIR_KERNEL_CALLS.clear()
-    k1.launches = 0                           # just before the main path
+    _reset_roi_launches(k1)                   # just before the main path
     for mode in k234.launches:
         k234.launches[mode] = 0
     t0 = time.time()
     outputs = detection.process_files(config)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"k1": k1.launches, **k234.launches}       # just after
+    launches = {**_roi_launches(k1), **k234.launches}     # just after
     pair_calls = list(postprocessing.PAIR_KERNEL_CALLS)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     stages = dict(detection.LAST_STAGE_SECONDS)
@@ -753,9 +932,9 @@ def phase_pipeline(state, workdir: Path):
         fail(f"pipeline: no crowns written for the sheet: {written}")
     if pred is None or pred.used_random_init:
         fail("pipeline: the Predictor was not built from the checkpoint")
-    if launches["k1"] != 2 * batches:
-        fail(f"pipeline: K1 launched {launches['k1']} times for {batches} "
-             f"batches")
+    if launches["k1"] != 2 * batches or launches["k5"] or launches["k6"]:
+        fail(f"pipeline: ROI launches {launches} for {batches} batches in "
+             f"the default layout (expected K1 twice per batch, no other)")
     if launches["dedupe"] != expected["dedupe"] or launches["dedupe"] == 0 \
             or launches["containment"] != expected["containment"] \
             or launches["containment"] == 0:
@@ -812,36 +991,272 @@ def phase_pipeline(state, workdir: Path):
         handler.close()
 
 
-# --- phase 6: summary ----------------------------------------------------------
+# --- phase 6: the two-model configuration, and the resident layout ----------
 
-def kernels_line(state):
-    k = state["k1"]
-    box, mask = k[("box", "bfloat16")], k[("mask", "bfloat16")]
-    both = [box, mask]
-    t_bytes = sum(r["bytes"] for r in both) / H100_BYTES_PER_S * 1e3
-    t_ops = sum(r["flops"] for r in both) / PEAK_FLOPS["bfloat16"] * 1e3
-    pipe = state["pipeline"]
-    kernels = [{
-        "name": "roi_pool_patches_flat",
-        "route": "cuda",
-        "source": "treedetection_tpu_torch/csrc/roi_pool_flat.cu",
-        "replaces": "treedetection_tpu/ops/pallas/roi_align_kernel.py:172",
-        "launches": pipe["launches"]["k1"],
-        "launches_by_path": {"pipeline": pipe["launches"]["k1"],
-                             "predictor": state["predictor"]["k1_launches"]},
-        "max_abs_err": max(r["max_abs_err"] for r in k.values()),
+def _predicted_tiles(pred_dir: Path):
+    return {p.name[len("Prediction_"):-len(".json")]
+            for p in pred_dir.glob("Prediction_*.json")}
+
+
+def _tile_crowns(pred_dir: Path):
+    """tile file name -> the tile's crowns (the Predictor's JSON)."""
+    return {p.name: json.loads(p.read_text())
+            for p in sorted(pred_dir.glob("Prediction_*.json"))}
+
+
+def phase_pipeline_two_model(state, workdir: Path):
+    import shutil
+
+    import torch
+    from treedetection_tpu_torch import detection
+    from treedetection_tpu_torch.config import Config, prepare_config
+    from treedetection_tpu_torch.ops.kernels import roi_align as k
+    from treedetection_tpu_torch.vector import read_gpkg
+    from treedetection_tpu_torch.vector.geojson import write_geojson
+    root = workdir / "two_model"
+    big = "324125317"
+    rgb, ndsm = root / "rgb" / f"{big}.tif", root / "nDSM" / f"{big}.tif"
+    t0 = time.time()
+    if "sheet" in state:          # the sheet the pipeline phase wrote
+        for src, dst in zip(state["sheet"], (rgb, ndsm)):
+            dst.parent.mkdir(parents=True, exist_ok=True)
+            os.link(src, dst)
+    else:
+        write_synthetic_sheet(rgb, ndsm, SHEET_PX, SHEET_ORIGIN,
+                              n_discs=int(DISCS_PER_KM2 * (SHEET_PX / 5000) ** 2),
+                              seed=2)
+    # the forest outline: the west half of the sheet, with margins beyond it
+    side = SHEET_PX * 0.2
+    x0, y1 = SHEET_ORIGIN
+    seam = x0 + side / 2
+    write_geojson(str(root / "forest.geojson"),
+                  [np.array([[x0 - 100, y1 - side - 100], [seam, y1 - side - 100],
+                             [seam, y1 + 100], [x0 - 100, y1 + 100]])],
+                  [{}], crs_epsg=25832)
+    # two copies of the checkpoint, so that two Predictors stay on the card
+    for name in ("urban", "forest"):
+        shutil.copyfile(NPZ, root / f"{name}.npz")
+    data_s = time.time() - t0
+
+    def make_config():
+        raw = pipeline_config(root)
+        del raw["combined_model"]
+        raw.update(urban_model=str(root / "urban.npz"),
+                   forrest_model=str(root / "forest.npz"),
+                   forrest_outline=str(root / "forest.geojson"))
+        Config.reset()
+        return prepare_config(raw, str(root))[0]
+
+    _clear_layout_env()
+    config = make_config()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    _reset_roi_launches(k)                    # just before the main path
+    with layout_env("levels"):
+        t0 = time.time()
+        outputs = detection.process_files(config)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    launches = _roi_launches(k)               # just after
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    stages = dict(detection.LAST_STAGE_SECONDS)
+
+    out = root / "out"
+    plan = json.loads((root / "tiles" / f"{big}.json").read_text())
+    only_forest = {t for t, m in plan.items() if m["only_forest"]}
+    only_urban = {t for t, m in plan.items() if m["only_urban"]}
+    passes, batches = {}, 0
+    for model, skipped in (("urban", only_forest), ("forest", only_urban)):
+        model_root = out / "predictions" / model
+        if not (model_root / f"{big}.gpkg").is_file():
+            fail(f"pipeline_two_model: no stitched layer under {model_root}")
+        got = _predicted_tiles(model_root / big)
+        if got != set(plan) - skipped:
+            fail(f"pipeline_two_model: the {model} pass predicted "
+                 f"{len(got)} tiles, {len(got & skipped)} of them flagged to "
+                 f"be skipped; the plan asks for {len(set(plan) - skipped)}")
+        n_batches = math.ceil(len(got) / config["batch_size"])
+        batches += n_batches
+        passes[model] = {
+            "tiles_predicted": len(got), "tiles_skipped": len(skipped),
+            "batches": n_batches,
+            "crowns_stitched": len(read_gpkg(
+                str(model_root / f"{big}.gpkg"))[0])}
+    fused_path = out / "predictions" / f"{big}.gpkg"
+    geoms = read_gpkg(str(fused_path))[0] if fused_path.is_file() else []
+    xs = np.array([np.asarray(g[0][0])[:, 0].mean() for g in geoms])
+    written = {Path(p).name: len(read_gpkg(str(p))[0]) for p in outputs}
+    cache = config.get("_predictor_cache", {})
+    row = {"phase": "pipeline_two_model", "config": "R50-FPN, 1024^2, batch "
+           "10, 512 proposals, bf16, urban + forest model, TD_ROI_FLAT=0",
+           "sheet_px": SHEET_PX, "tiles_planned": len(plan),
+           "tiles_only_forest": len(only_forest),
+           "tiles_only_urban": len(only_urban), "passes": passes,
+           "batches": batches, "crowns_fused": len(geoms),
+           "crowns_fused_west": int((xs < seam).sum()),
+           "crowns_fused_east": int((xs > seam).sum()),
+           "crowns_written": written, "wall_s": wall, "data_s": data_s,
+           "tiles_per_s": sum(p["tiles_predicted"] for p in passes.values())
+           / stages["predict"], "stage_s": stages, "launches": launches,
+           "predictors_resident": len(cache),
+           "device_gib_before": base_gib, "peak_device_gib": peak_gib,
+           "roi_overflow": sum(p.total_roi_overflow for p in cache.values()),
+           "prop_overflow": sum(p.total_prop_overflow
+                                for p in cache.values())}
+    emit(row)
+    if len(plan) != math.ceil(side / config["tile_width"]) ** 2 or \
+            not only_forest or not only_urban:
+        fail(f"pipeline_two_model: {len(plan)} tiles planned, "
+             f"{len(only_forest)} forest-only, {len(only_urban)} urban-only")
+    if len(cache) != 2 or len({id(p) for p in cache.values()}) != 2 or \
+            any(p.used_random_init for p in cache.values()):
+        fail("pipeline_two_model: expected two Predictors built from the "
+             "checkpoint copies")
+    if launches != {"k1": 0, "k5": 2 * batches, "k6": 0}:
+        fail(f"pipeline_two_model: ROI launches {launches} for {batches} "
+             f"batches under TD_ROI_FLAT=0 (expected K5 twice per batch and "
+             f"no other)")
+    if not row["crowns_fused_west"] or not row["crowns_fused_east"]:
+        fail("pipeline_two_model: the fused layer lacks crowns on one side "
+             "of the outline")
+    if written.get(f"processed_{big}.gpkg", 0) == 0:
+        fail(f"pipeline_two_model: no processed crowns: {written}")
+    state["two_model"] = row
+
+    # (1) a second call on the finished output predicts nothing
+    config2 = make_config()
+    _reset_roi_launches(k)
+    with layout_env("levels"):
+        t0 = time.time()
+        outputs2 = detection.process_files(config2)
+        resume_s = time.time() - t0
+    counts = _roi_launches(k)
+    emit({"phase": "pipeline_two_model_resume", "seconds": resume_s,
+          "launches": counts,
+          "predictor_built": "_predictor_cache" in config2,
+          "outputs": [Path(p).name for p in outputs2]})
+    if any(counts.values()) or "_predictor_cache" in config2:
+        fail("pipeline_two_model: the resumed run predicted again")
+    if sorted(outputs2) != sorted(outputs):
+        fail("pipeline_two_model: the resumed run returned other outputs")
+    for cfg in (config, config2):
+        for handler in list(cfg["logger"].handlers):
+            cfg["logger"].removeHandler(handler)
+            handler.close()
+    config.pop("_predictor_cache", None)
+    del cache
+    torch.cuda.empty_cache()
+
+    # (2) the Predictor of phase 3 over the same 16 tiles under
+    # TD_ROI_RESIDENT=1, against that phase's pass in the default layout
+    pred = state["pred"]
+    out_res = workdir / "pred_resident"
+    _reset_roi_launches(k)                    # just before the main path
+    with layout_env("resident"):
+        t0 = time.time()
+        n_written = pred(str(state["tif"]), state["meta"], str(out_res))
+        torch.cuda.synchronize()
+        res_wall = time.time() - t0
+    counts = _roi_launches(k)                 # just after
+    res_batches = math.ceil(n_written / pred.batch_size)
+    flat, res = _tile_crowns(state["pred_timed_dir"]), _tile_crowns(out_res)
+    identical = sum(flat[name] == res.get(name) for name in flat)
+    score_err, vertex_err, count_diff = 0.0, 0.0, []
+    for name in flat:
+        a, b = flat[name], res.get(name, [])
+        if len(a) != len(b):
+            count_diff.append(name)
+            continue
+        for ca, cb in zip(a, b):
+            score_err = max(score_err, abs(ca["score"] - cb["score"]))
+            ra = np.asarray(ca["polygon_coords"][0], dtype=np.float64)
+            rb = np.asarray(cb["polygon_coords"][0], dtype=np.float64)
+            if ra.shape == rb.shape:
+                vertex_err = max(vertex_err, float(np.abs(ra - rb).max()))
+    row = {"phase": "predictor_resident", "tiles": n_written,
+           "batches": res_batches, "wall_s": res_wall, "launches": counts,
+           "tiles_identical_to_flat_pass": identical,
+           "tiles_with_other_crown_count": count_diff,
+           "crowns": sum(len(v) for v in res.values()),
+           "crowns_flat_pass": sum(len(v) for v in flat.values()),
+           "max_score_diff": score_err,
+           "max_vertex_diff_of_equal_shaped_rings": vertex_err,
+           "tolerance": "same tiles, same crown count per tile, scores "
+                        "within 0.02 (bf16: the hats of clamped windows are "
+                        "folded again, an output may move by one bf16 ulp)"}
+    emit(row)
+    if counts != {"k1": 0, "k5": 0, "k6": 2 * res_batches}:
+        fail(f"predictor_resident: ROI launches {counts} for {res_batches} "
+             f"batches under TD_ROI_RESIDENT=1")
+    if sorted(flat) != sorted(res) or count_diff or score_err > 0.02:
+        fail(f"predictor_resident: detections differ from the flat pass: "
+             f"{row}")
+    state["resident"] = row
+
+
+# --- phase 7: summary ----------------------------------------------------------
+
+ROI_KERNELS = {   # key -> (number, wrapper, source, the TPU kernel's line)
+    "k1": ("K1", "roi_pool_patches_flat", "roi_pool_flat.cu", 172),
+    "k5": ("K5", "roi_pool_patches", "roi_pool_levels.cu", 37),
+    "k6": ("K6", "roi_pool_resident", "roi_pool_resident.cu", 281)}
+NO_LIBRARY = "no single PyTorch call computes this function"
+
+
+def _roi_entry(key, calls, launches, launches_by_path, note):
+    """One ROI pooler's entry: ``calls`` maps a label to the (pool, dtype)
+    rows of the kernel phase; the headline numbers are the bf16 box pool plus
+    the bf16 mask pool of the first label (one batch of the example
+    config)."""
+    number, wrapper, source, line = ROI_KERNELS[key]
+    rows = next(iter(calls.values()))
+    box, mask = rows[("box", "bfloat16")], rows[("mask", "bfloat16")]
+    t_bytes = (box["bytes"] + mask["bytes"]) / H100_BYTES_PER_S * 1e3
+    t_ops = (box["flops"] + mask["flops"]) / PEAK_FLOPS["bfloat16"] * 1e3
+    by_call = {}
+    for label, group in calls.items():
+        for (pool, dname), r in group.items():
+            by_call[f"{label}{pool}/{dname}"] = {key_: r[key_] for key_ in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+    return {
+        "name": wrapper, "number": number, "route": "cuda",
+        "source": f"treedetection_tpu_torch/csrc/{source}",
+        "replaces": f"treedetection_tpu/ops/pallas/roi_align_kernel.py:{line}",
+        "launches": launches, "launches_by_path": launches_by_path,
+        "max_abs_err": max(r["max_abs_err"] for group in calls.values()
+                           for r in group.values()),
         "ms": box["ms"] + mask["ms"],
         "plain_ms": box["plain_ms"] + mask["plain_ms"],
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
-        "library_note": "no single PyTorch call computes this function",
+        "library_ms": None, "library_note": NO_LIBRARY,
         "per_batch_of": "box pool (N=5120, R=7) + mask pool (N=1000, R=14), "
-                        "bf16, C=256, 1024^2 input, batch 10",
-        "by_call": {f"{p}/{d}": {key: r[key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
-            for (p, d), r in k.items()},
-    }]
+                        "bf16, C=256, 1024^2 input, batch 10" + note,
+        "by_call": by_call}
+
+
+def kernels_line(state):
+    roi, pipe = state["roi"], state["pipeline"]
+    two, res = state["two_model"], state["resident"]
+    picked = roi["k6_c1"][("box", "bfloat16")]["c_split_the_launcher_picks"]
+    k6_calls = {f"c_split={cs}/": roi[f"k6_c{cs}"]
+                for cs in sorted((1, 2), key=lambda cs: cs != picked)}
+    kernels = [
+        _roi_entry("k1", {"": roi["k1"]}, pipe["launches"]["k1"],
+                   {"pipeline": pipe["launches"]["k1"],
+                    "predictor": state["predictor"]["k1_launches"],
+                    "pipeline_two_model": two["launches"]["k1"]}, ""),
+        _roi_entry("k5", {"": roi["k5"]}, two["launches"]["k5"],
+                   {"pipeline_two_model": two["launches"]["k5"],
+                    "pipeline": pipe["launches"]["k5"]},
+                   "; on the path under TD_ROI_FLAT=0"),
+        _roi_entry("k6", k6_calls, res["launches"]["k6"],
+                   {"predictor_resident": res["launches"]["k6"],
+                    "pipeline": pipe["launches"]["k6"]},
+                   f"; on the path under TD_ROI_RESIDENT=1; headline numbers "
+                   f"at c_split={picked}, which the launcher picks in bf16")]
     for mode, (number, wrapper, line) in PAIR_KERNELS.items():
         r = state["pairwise"][mode]
         kernels.append({
@@ -857,7 +1272,7 @@ def kernels_line(state):
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None,
-            "library_note": "no single PyTorch call computes this function",
+            "library_note": NO_LIBRARY,
             "per_call_of": f"one row block, {r['shape'][0]} rows x "
                            f"{r['shape'][1]} columns, float32 in, uint8 out",
             **({} if mode != "iou" else {"note": (
@@ -876,6 +1291,11 @@ def main() -> None:
                          "and write its kernel table and trace to DIR")
     args = ap.parse_args()
     phases = args.phases.split(",")
+    if set(phases) - set(PHASES):
+        fail(f"unknown phases {sorted(set(phases) - set(PHASES))}")
+    if "pipeline_two_model" in phases and "predictor" not in phases:
+        fail("the pipeline_two_model phase reruns the predictor phase's "
+             "raster: name both")
     if not (REPO / "treedetection_tpu_torch" / "__init__.py").is_file():
         fail("the treedetection_tpu_torch package is not beside this script")
     sys.path.insert(0, str(REPO))
@@ -901,6 +1321,8 @@ def main() -> None:
             phase_model(state, work)
         if "pipeline" in phases:
             phase_pipeline(state, work)
+        if "pipeline_two_model" in phases:
+            phase_pipeline_two_model(state, work)
     if set(phases) == set(PHASES):
         emit(kernels_line(state))
     emit({"phase": "done", "seconds": round(time.time() - t_start, 3)})

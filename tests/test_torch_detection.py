@@ -369,23 +369,75 @@ def test_get_predictor_builds_once_under_a_race(monkeypatch):
     assert prediction.get_predictor(config, "other.npz") is not built[0]
 
 
+def test_cli_runs_the_stages(runs, capsys, monkeypatch):
+    """``cli.main`` drives each ported stage from a YAML config (here on the
+    finished run, so every stage resumes from its manifest) and prints the
+    stage's outputs; the unported subcommands exit with code 2 and name the
+    roadmap item."""
+    import logging
+    from treedetection_tpu_torch import cli
+    from treedetection_tpu_torch.config import LOGGER_NAME
+
+    def boom(*a, **k):
+        raise AssertionError("the resumed run built a Predictor")
+    monkeypatch.setattr(prediction, "Predictor", boom)
+    path = runs["root"] / "cli.yml"
+    path.write_text(yaml.safe_dump(_raw_config("port")))
+    printed = {}
+    for command in ("preprocess", "predict", "postprocess", "run"):
+        Config.reset()
+        assert cli.main([command, str(path)]) == 0
+        # the console log handler writes to stdout too: keep the paths
+        printed[command] = [ln for ln in capsys.readouterr().out.splitlines()
+                            if ln.startswith(os.sep)]
+    logger = logging.getLogger(LOGGER_NAME)
+    for handler in list(logger.handlers):
+        logger.removeHandler(handler)
+        handler.close()
+    assert printed["run"] == printed["postprocess"] == runs["ours"]
+    assert [Path(p).name for p in printed["predict"]] == ["324125317.gpkg"]
+    assert [Path(p).name for p in printed["preprocess"]] == ["324125317.json"]
+    for command in ("eval", "voronoi", "autolabel", "bench"):
+        assert cli.main([command, "x"]) == 2
+        assert "ROADMAP.md Queue 1 item" in capsys.readouterr().err
+
+
 def test_unported_branches_raise(tmp_path, monkeypatch):
-    """Two-model routing, more than one host and RLE prediction files name
-    what is missing; the default device raises without a card."""
-    two = {"urban_model": "u", "forrest_model": "f", "forrest_outline": "o",
+    """More than one host names what is missing and is the only branch that
+    still raises ``NotImplementedError``: two-model routing and RLE
+    prediction files run.  The default device raises without a card."""
+    from treedetection_tpu_torch.compat import rle_encode
+    from treedetection_tpu_torch.vector.geojson import write_geojson
+    outline = str(tmp_path / "forest.geojson")
+    write_geojson(outline, [circle(0, 0, 50)], [{}], crs_epsg=25832)
+    two = {"urban_model": "u", "forrest_model": "f",
+           "forrest_outline": outline, "tiles_path": str(tmp_path / "tiles"),
            "image_directory": str(tmp_path), "height_data_path": str(tmp_path),
            "output_directory": str(tmp_path / "out")}
-    with pytest.raises(NotImplementedError, match="two-model"):
-        detection.predict_tiles(two)
     monkeypatch.setenv("TREEDETECTION_NUM_HOSTS", "2")
     with pytest.raises(NotImplementedError, match="multi-host"):
         detection.process_files(two)
+    with pytest.raises(NotImplementedError, match="multi-host"):
+        detection.predict_tiles(two)
     monkeypatch.delenv("TREEDETECTION_NUM_HOSTS")
-    rle = tmp_path / "Prediction_img_100_200_50_20_25832.json"
-    rle.write_text(json.dumps([{"score": 0.9, "segmentation": {
-        "size": [4, 4], "counts": "04"}}]))
-    with pytest.raises(NotImplementedError, match="RLE"):
-        stitching.stitch_tile_file(str(rle), 0.2)
+    port = Path(detection.__file__).parent
+    raising = [f.name for f in sorted(port.rglob("*.py"))
+               if "raise NotImplementedError" in f.read_text()]
+    assert raising == ["detection.py"]
+    # two-model routing runs: with no image it predicts and fuses nothing
+    assert detection.predict_tiles(two) == []
+    assert (tmp_path / "out" / "predictions" / "urban").is_dir()
+    assert (tmp_path / "out" / "predictions" / "forest").is_dir()
+    # an RLE crown (a 20 x 20 px square) is decoded, traced and kept
+    mask = np.zeros((60, 60), dtype=np.uint8)
+    mask[20:40, 10:30] = 1
+    rle = tmp_path / "Prediction_img_0_0_60_0_25832.json"
+    rle.write_text(json.dumps([{"score": 0.9,
+                                "segmentation": rle_encode(mask)}]))
+    crowns, scores = stitching.stitch_tile_file(str(rle), 0.2)
+    assert scores == [0.9] and len(crowns) == 1
+    assert crowns[0][:, 0].min() >= 9 and crowns[0][:, 0].max() <= 31
+    assert crowns[0][:, 1].min() >= 19 and crowns[0][:, 1].max() <= 41
     if not torch.cuda.is_available():
         _write_rasters(tmp_path / "data", side_px=50, n_discs=1)
         raw = _raw_config("out")

@@ -1,5 +1,6 @@
-"""K1 (the flat ROIAlign patch pooler) and K2/K3/K4 (the pairwise box-relation
-masks) on the card against their plain versions.
+"""K1, K5, K6 (the flat, per-level and image-resident ROIAlign patch poolers)
+and K2/K3/K4 (the pairwise box-relation masks) on the card against their
+plain versions.
 
 These tests need an NVIDIA GPU: they carry the ``gpu`` marker and skip
 elsewhere.  On the card: ``python -m pytest tests/test_torch_kernels.py``.
@@ -11,7 +12,8 @@ import torch
 
 from treedetection_tpu_torch.ops.kernels import pairwise as k234
 from treedetection_tpu_torch.ops.kernels import roi_align as k1
-from treedetection_tpu_torch.ops.roi_align import flat_pool_inputs
+from treedetection_tpu_torch.ops.roi_align import (
+    flat_pool_inputs, level_pool_inputs, resident_pool_inputs)
 
 pytestmark = pytest.mark.gpu
 
@@ -25,7 +27,8 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _inputs(dev, dtype, resolution, b=2, n=64, c=64, seed=0):
+def _inputs(dev, dtype, resolution, b=2, n=64, c=64, seed=0,
+            prep=flat_pool_inputs):
     rng = np.random.default_rng(seed)
     fmaps = [torch.from_numpy(rng.standard_normal(
         (b, 128 >> i, 128 >> i, c)).astype(np.float32)).to(dev, dtype)
@@ -34,7 +37,20 @@ def _inputs(dev, dtype, resolution, b=2, n=64, c=64, seed=0):
     wh = rng.uniform(8, 200, (b, n, 2))
     boxes = np.clip(np.concatenate([ctr - wh / 2, ctr + wh / 2], -1), 0, 512)
     boxes = torch.from_numpy(boxes.astype(np.float32)).to(dev)
-    return flat_pool_inputs(fmaps, boxes, resolution, (4, 8, 16, 32))
+    return prep(fmaps, boxes, resolution, (4, 8, 16, 32))
+
+
+def _assert_close(got, ref, dtype):
+    """float32: summation order only, atol 2e-5 of the peak.  bfloat16: both
+    accumulate in float32 and round once, so one bf16 ulp (2^-7 relative)
+    plus 1e-5 of the peak where sums cancel."""
+    ref = ref.float()
+    peak = max(1.0, float(ref.abs().max()))
+    if dtype == torch.float32:
+        atol, rtol = 2e-5 * peak, 0.0
+    else:
+        atol, rtol = 1e-5 * peak, 2.0 ** -7
+    assert ((got.float() - ref).abs() <= atol + rtol * ref.abs()).all()
 
 
 @pytest.mark.parametrize("resolution", [7, 14])
@@ -49,13 +65,7 @@ def test_k1_matches_plain_version(cuda, resolution, dtype):
     got = k1.roi_pool_patches_flat(*args)
     torch.cuda.synchronize()
     assert k1.launches == before + 1
-    ref = k1.roi_pool_patches_flat_reference(*args).float()
-    peak = max(1.0, float(ref.abs().max()))
-    if dtype == torch.float32:
-        atol, rtol = 2e-5 * peak, 0.0
-    else:
-        atol, rtol = 1e-5 * peak, 2.0 ** -7
-    assert ((got.float() - ref).abs() <= atol + rtol * ref.abs()).all()
+    _assert_close(got, k1.roi_pool_patches_flat_reference(*args), dtype)
 
 
 def test_k1_raises_instead_of_falling_back(cuda):
@@ -66,6 +76,74 @@ def test_k1_raises_instead_of_falling_back(cuda):
                                  p.ax[:, :5].contiguous(), 5)
     with pytest.raises(ValueError, match="is on cpu"):
         k1.roi_pool_patches_flat(p.kcat, p.rows.cpu(), p.cols, p.ay, p.ax, 7)
+
+
+@pytest.mark.parametrize("resolution", [7, 14])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_matches_plain_version(cuda, resolution, dtype):
+    """K5 on per-level buffers against its plain version (K1's tolerances),
+    also with the hats sliced to a small patch class, and against K1 on the
+    same boxes."""
+    p = _inputs(cuda, dtype, resolution, prep=level_pool_inputs)
+    before = k1.launches_patches
+    got = k1.roi_pool_patches(p.kpadded, p.meta, p.ay, p.ax, resolution)
+    torch.cuda.synchronize()
+    assert k1.launches_patches == before + 1
+    _assert_close(got, k1.roi_pool_patches_reference(
+        p.kpadded, p.meta, p.ay, p.ax, resolution), dtype)
+    f = _inputs(cuda, dtype, resolution)
+    _assert_close(got, k1.roi_pool_patches_flat(f.kcat, f.rows, f.cols, f.ay,
+                                                f.ax, resolution), dtype)
+    ay, ax = p.ay[:, :, :16].contiguous(), p.ax[:, :, :24].contiguous()
+    _assert_close(
+        k1.roi_pool_patches(p.kpadded, p.meta, ay, ax, resolution, 16),
+        k1.roi_pool_patches_reference(p.kpadded, p.meta, ay, ax, resolution,
+                                      16), dtype)
+
+
+@pytest.mark.parametrize("c_split", [1, 2])
+@pytest.mark.parametrize("resolution", [7, 14])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_matches_plain_version(cuda, resolution, dtype, c_split):
+    """K6 at whole C and at two C-blocks against its plain version, with
+    each image's 64 boxes padded to 70 (chunk 7), and against K5 on the
+    same boxes after the padding is cut off."""
+    p = _inputs(cuda, dtype, resolution, prep=level_pool_inputs)
+    r = resident_pool_inputs(p, resolution, 2, n_images=2, chunk=7,
+                             c_split=c_split)
+    assert r.pad_per == 6
+    args = (r.kpadded, r.meta, r.ay, r.ax, resolution, 48, r.chunk, 2, c_split)
+    before = k1.launches_resident
+    got = k1.roi_pool_resident(*args)
+    torch.cuda.synchronize()
+    assert k1.launches_resident == before + 1
+    _assert_close(got, k1.roi_pool_resident_reference(*args), dtype)
+    cut = got.reshape((2, 70) + got.shape[1:])[:, :64].reshape(
+        (128,) + got.shape[1:])
+    _assert_close(cut, k1.roi_pool_patches(p.kpadded, p.meta, p.ay, p.ax,
+                                           resolution), dtype)
+
+
+def test_k5_k6_raise_instead_of_falling_back(cuda, monkeypatch):
+    p = _inputs(cuda, torch.float32, 7, n=8, prep=level_pool_inputs)
+    r = resident_pool_inputs(p, 7, 2, n_images=2, chunk=4, c_split=1)
+    with pytest.raises(ValueError, match="is on cpu"):
+        k1.roi_pool_patches(p.kpadded, p.meta.cpu(), p.ay, p.ax, 7)
+    with pytest.raises(ValueError, match="resolutions"):
+        k1.roi_pool_patches(p.kpadded, p.meta, p.ay[:, :5].contiguous(),
+                            p.ax[:, :5].contiguous(), 5)
+    with pytest.raises(ValueError, match="clamped"):
+        k1.roi_pool_resident(p.kpadded, p.meta, p.ay, p.ax, 7, 48, 4, 2)
+    # a kernel that cannot be built raises; the plain version is not taken
+    before = (k1.launches_patches, k1.launches_resident)
+    monkeypatch.setattr(k1, "_libs", {})
+    monkeypatch.setattr(k1, "NVCC_FLAGS", ["--no-such-flag"])
+    with pytest.raises(RuntimeError, match="building roi_pool_levels failed"):
+        k1.roi_pool_patches(p.kpadded, p.meta, p.ay, p.ax, 7)
+    with pytest.raises(RuntimeError,
+                       match="building roi_pool_resident failed"):
+        k1.roi_pool_resident(r.kpadded, r.meta, r.ay, r.ax, 7, 48, r.chunk, 2)
+    assert (k1.launches_patches, k1.launches_resident) == before
 
 
 def _crown_boxes(n, seed=0):

@@ -137,10 +137,10 @@ def _binary_iou(a, b):
     return np.logical_and(a, b).sum() / union if union else 1.0
 
 
-def test_mask_rcnn_matches_jax(d2_models, monkeypatch):
+def _compare_forward_with_jax(d2_models, monkeypatch):
     """Full forward at 128^2 on the synthetic R50, JAX running its Pallas
-    flat pooler in interpret mode (the production pooling path, with its
-    exact tail and overflow counters): the test_oracle tolerances."""
+    pooler in interpret mode (with its exact tail and overflow counters):
+    the test_oracle tolerances."""
     import functools
     from treedetection_tpu.models import mask_rcnn as jmr
     from treedetection_tpu.ops.roi_align import (
@@ -171,6 +171,49 @@ def test_mask_rcnn_matches_jax(d2_models, monkeypatch):
         assert np.abs(gm - wm).max(initial=0) < 0.02
         for d in range(nv):
             assert _binary_iou(gm[d] > 0.5, wm[d] > 0.5) >= 0.99, (b, d)
+    return got
+
+
+ROI_LAYOUT_VARS = ("TD_ROI_FLAT", "TD_ROI_RESIDENT", "TD_ROI_SMALL",
+                   "TD_ROI_LARGE_FRAC", "TD_ROI_EXACT_FRAC")
+
+
+def test_mask_rcnn_matches_jax(d2_models, monkeypatch):
+    """The default layout (one flat buffer, K1's plain version here)."""
+    for name in ROI_LAYOUT_VARS:
+        monkeypatch.delenv(name, raising=False)
+    _compare_forward_with_jax(d2_models, monkeypatch)
+
+
+@pytest.mark.parametrize("layout,env", [
+    ("levels", {"TD_ROI_FLAT": "0"}),
+    ("resident", {"TD_ROI_RESIDENT": "1"}),
+    ("small_class", {"TD_ROI_FLAT": "0", "TD_ROI_SMALL": "16",
+                     "TD_ROI_LARGE_FRAC": "0.5"})])
+def test_mask_rcnn_layouts_match_jax(d2_models, monkeypatch, layout, env):
+    """The same forward with the pooler in its other layouts (per-level
+    buffers through K5, image-resident sections through K6, and the small
+    patch class on), both packages under the same variables: the same
+    tolerances, and the port went through that layout's pooler."""
+    from treedetection_tpu_torch.ops import roi_align as port_pool
+    for name in ROI_LAYOUT_VARS:
+        monkeypatch.delenv(name, raising=False)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    calls = {"roi_pool_patches": 0, "roi_pool_resident": 0,
+             "roi_pool_patches_flat": 0}
+    for name in calls:
+        def counted(*args, _real=getattr(port_pool, name), _name=name):
+            calls[_name] += 1
+            return _real(*args)
+        monkeypatch.setattr(port_pool, name, counted)
+    _compare_forward_with_jax(d2_models, monkeypatch)
+    assert calls["roi_pool_patches_flat"] == 0
+    if layout == "resident":
+        assert calls["roi_pool_resident"] == 2
+    else:
+        assert calls["roi_pool_patches"] == (2 if layout == "levels" else 4)
+        assert calls["roi_pool_resident"] == 0
 
 
 def test_mask_rcnn_plain_pool_matches_default(d2_models):

@@ -203,10 +203,13 @@ def test_multilevel_roi_align_batched_matches_jax(resolution):
              for i in range(4)]
     boxes = np.stack([_mixed_boxes(rng) for _ in range(2)])
     strides = (4, 8, 16, 32)
-    want, want_mask = jax_pool([jnp.asarray(f) for f in fmaps],
-                               jnp.asarray(boxes), resolution, strides,
-                               pallas=True, force_interpret=True,
-                               return_inexact_mask=True)
+    # one compiled computation: called eagerly, the interpreted kernel's
+    # host callbacks race the main thread's dispatch of the ops after it
+    want, want_mask = jax.block_until_ready(jax.jit(
+        lambda f, bx: jax_pool(f, bx, resolution, strides, pallas=True,
+                               force_interpret=True,
+                               return_inexact_mask=True))(
+        [jnp.asarray(f) for f in fmaps], jnp.asarray(boxes)))
     got, got_mask = multilevel_roi_align_batched(
         [torch.from_numpy(f) for f in fmaps], torch.from_numpy(boxes),
         resolution, strides)

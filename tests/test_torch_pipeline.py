@@ -201,7 +201,8 @@ def test_process_files_runs_without_jax_and_yaml(tmp_raster, tmp_path):
     """``process_files`` of the port on the CPU from a dict config, in a
     fresh interpreter where jax, flax, yaml, cv2 and treedetection_tpu
     cannot be imported at all: tiling, prediction, the eager stitch,
-    postprocessing with both rasters (both pair branches), the manifests."""
+    postprocessing with both rasters (both pair branches), the manifests;
+    then ``cli`` and ``compat`` in the same interpreter."""
     (tmp_path / "model.ckpt").write_text("placeholder")   # random-init path
     script = f"""
 import sys, json, os
@@ -234,8 +235,15 @@ for branch in ("0", "1"):
     counts.append([len(outputs), srs, sorted(os.listdir(config["tiles_path"])),
                    os.path.exists(os.path.join(config["output_directory"],
                                                "recovery.yaml"))])
+import numpy as np
+from treedetection_tpu_torch import cli, compat
+mask = np.zeros((8, 8), np.uint8)
+mask[2:6, 2:6] = 1
+ring = compat.polygon_from_mask(compat.rle_decode(compat.rle_encode(mask)))
+extra = [cli.main(["bench"]), cli.main(["eval", "a.gpkg", "b.gpkg"]),
+         len(ring) >= 8]
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
-print(json.dumps({{"counts": counts, "bad": bad}}))
+print(json.dumps({{"counts": counts, "bad": bad, "extra": extra}}))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
@@ -244,6 +252,8 @@ print(json.dumps({{"counts": counts, "bad": bad}}))
     assert proc.returncode == 0, proc.stderr[-3000:]
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
+    # the unported subcommands exit with 2; the RLE helpers need nothing else
+    assert result["extra"] == [2, 2, True]
     assert result["counts"] == [
         [1, 25832, ["324125317.json", "recovery.yaml"], True]] * 2
 
@@ -289,9 +299,12 @@ def test_port_never_imports_jax_statically():
                 assert (f.name, func) == ("config.py", "load_config"), \
                     f"{f.relative_to(REPO)} imports yaml in {func}"
         assert "treedetection_tpu." not in f.read_text(), f
-    sources = sorted((PORT / "csrc").glob("*.cu")) + \
+    sources = sorted((PORT / "csrc").glob("*.cu*")) + \
         sorted((PORT / "native").glob("*.cpp"))
-    assert len(sources) == 3
+    assert [p.name for p in sources] == [
+        "pairwise_boxes.cu", "roi_pool_flat.cu", "roi_pool_levels.cu",
+        "roi_pool_resident.cu", "roi_pool_window.cuh", "contour.cpp"]
+    assert {"compat.py", "cli.py"} <= {f.name for f in files}
 
 
 @pytest.mark.parametrize("name", ["config.yml", "config_r101.yml"])

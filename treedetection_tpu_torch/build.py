@@ -48,13 +48,16 @@ def nvcc_path() -> str:
 
 
 def build_shared_library(name: str, sources: Sequence[Path],
-                         command: List[str]) -> Path:
+                         command: List[str],
+                         headers: Sequence[Path] = ()) -> Path:
     """Compile ``sources`` with ``command`` (the compiler and its flags,
     without sources or ``-o``) into ``_build/<name>-<hash>.so`` unless that
-    file already exists; returns its path.  The compiler's output is kept
-    beside it as ``<name>-<hash>.log``."""
+    file already exists; returns its path.  ``headers`` are the files the
+    sources include from their own directory: they are not given to the
+    compiler but count in the hash, so an edited header rebuilds too.  The
+    compiler's output is kept beside the library as ``<name>-<hash>.log``."""
     digest = hashlib.sha256(" ".join(command).encode())
-    for src in sources:
+    for src in list(sources) + list(headers):
         digest.update(Path(src).read_bytes())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     with _lock(name):

@@ -17,36 +17,18 @@
 // the touched part of fcat is ~1.07 GB (~0.32 ms).  Crowns are dense and their
 // windows overlap heavily; that reuse is what a faster design exploits.
 //
-// This design is the simple one: one block per (box, 32-channel slice).  The
-// block stages its box's hat matrices in shared memory, then
-//   phase 1: t[r][x][c] = sum_y A_y[r][y] * window[y][x][c]   (fp32, in smem)
-//   phase 2: out[r][j][c] = sum_x A_x[j][x] * t[r][x][c]
-// Consecutive threads own consecutive channels, so window reads and output
-// writes are coalesced along C; overlapping windows of neighbouring boxes are
-// served from L2 when their blocks run close together.  Reads outside fcat are
-// treated as zeros (the caller's padding keeps valid boxes inside it).
-// Hat matrices and the intermediate t stay fp32; only the output is rounded
-// to the feature dtype.
+// This design is the simple one: one block per (box, 32-channel slice), which
+// stages the box's hat matrices in shared memory and runs the two contraction
+// phases of roi_pool_window.cuh.  Overlapping windows of neighbouring boxes
+// are served from L2 when their blocks run close together.  Reads outside
+// fcat are treated as zeros (the caller's padding keeps valid boxes inside
+// it).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
+#include "roi_pool_window.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCSlice = 32;
-
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+using namespace roi_pool;
 
 template <typename T, int R>
 __global__ void __launch_bounds__(kThreads)
@@ -56,59 +38,12 @@ roi_pool_flat_kernel(const T* __restrict__ fcat, const int32_t* __restrict__ row
                      int total_rows, int width, int channels, int patch) {
   extern __shared__ float smem[];
   const int cpatch = patch + 8;
-  float* s_ay = smem;                   // (R, patch)
-  float* s_ax = s_ay + R * patch;       // (R, cpatch)
-  float* s_t = s_ax + R * cpatch;       // (R, cpatch, kCSlice)
-
   const int box = blockIdx.x;
-  const int c0 = blockIdx.y * kCSlice;
-  const int row0 = rows[box];
-  const int col0 = cols[box];
-
-  const float* ay_box = ay + static_cast<size_t>(box) * R * patch;
-  const float* ax_box = ax + static_cast<size_t>(box) * R * cpatch;
-  for (int i = threadIdx.x; i < R * patch; i += blockDim.x) s_ay[i] = ay_box[i];
-  for (int i = threadIdx.x; i < R * cpatch; i += blockDim.x) s_ax[i] = ax_box[i];
-  __syncthreads();
-
-  // phase 1: contract the window rows with A_y
-  for (int p = threadIdx.x; p < cpatch * kCSlice; p += blockDim.x) {
-    const int x = p / kCSlice;
-    const int cl = p % kCSlice;
-    const int c = c0 + cl;
-    const int gx = col0 + x;
-    float acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.f;
-    if (c < channels && gx >= 0 && gx < width) {
-      for (int y = 0; y < patch; ++y) {
-        const int gy = row0 + y;
-        if (gy < 0 || gy >= total_rows) continue;
-        const float v = load_f32(
-            fcat + (static_cast<size_t>(gy) * width + gx) * channels + c);
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(s_ay[r * patch + y], v, acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) s_t[(r * cpatch + x) * kCSlice + cl] = acc[r];
-  }
-  __syncthreads();
-
-  // phase 2: contract the window columns with A_x
-  for (int q = threadIdx.x; q < R * R * kCSlice; q += blockDim.x) {
-    const int cl = q % kCSlice;
-    const int rj = q / kCSlice;
-    const int j = rj % R;
-    const int r = rj / R;
-    const int c = c0 + cl;
-    if (c >= channels) continue;
-    const float* t_row = s_t + r * cpatch * kCSlice + cl;
-    const float* ax_row = s_ax + j * cpatch;
-    float acc = 0.f;
-    for (int x = 0; x < cpatch; ++x) acc = fmaf(ax_row[x], t_row[x * kCSlice], acc);
-    store_as(out + ((static_cast<size_t>(box) * R + r) * R + j) * channels + c, acc);
-  }
+  pool_box<T, R>(fcat, total_rows, width, width, channels,
+                 blockIdx.y * kCSlice, channels, rows[box], cols[box],
+                 ay + static_cast<size_t>(box) * R * patch,
+                 ax + static_cast<size_t>(box) * R * cpatch,
+                 out + static_cast<size_t>(box) * R * R * channels, patch, smem);
 }
 
 template <typename T, int R>
@@ -116,10 +51,7 @@ cudaError_t launch(const void* fcat, const void* rows, const void* cols,
                    const void* ay, const void* ax, void* out, int n,
                    int patch, int total_rows, int width, int channels,
                    cudaStream_t stream) {
-  const int cpatch = patch + 8;
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(R) * patch + R * cpatch +
-                       static_cast<size_t>(R) * cpatch * kCSlice);
+  const size_t smem = smem_bytes<R>(patch);
   auto kernel = roi_pool_flat_kernel<T, R>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -146,19 +78,8 @@ int td_roi_pool_flat(const void* fcat, const void* rows, const void* cols,
                      int channels, int dtype, void* stream) {
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && resolution == 7)
-    return launch<float, 7>(fcat, rows, cols, ay, ax, out, n, patch, total_rows,
-                            width, channels, s);
-  if (dtype == 0 && resolution == 14)
-    return launch<float, 14>(fcat, rows, cols, ay, ax, out, n, patch, total_rows,
-                             width, channels, s);
-  if (dtype == 1 && resolution == 7)
-    return launch<__nv_bfloat16, 7>(fcat, rows, cols, ay, ax, out, n, patch,
-                                    total_rows, width, channels, s);
-  if (dtype == 1 && resolution == 14)
-    return launch<__nv_bfloat16, 14>(fcat, rows, cols, ay, ax, out, n, patch,
-                                     total_rows, width, channels, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  ROI_POOL_DISPATCH(launch, dtype, resolution, fcat, rows, cols, ay, ax, out, n,
+                    patch, total_rows, width, channels, s);
 }
 
 }  // extern "C"

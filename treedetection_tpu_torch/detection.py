@@ -12,8 +12,10 @@ Layout under ``output_directory``:
 ``predictions/<stem>.gpkg`` (stitched), ``processed_<stem>.gpkg`` (filtered),
 and the final copies at the output root (reference ``detection.py:46-59``).
 
-Ported: one combined model on one device of one host.  Two-model routing
-(``urban_model`` + ``forrest_model``) and runs over more than one host raise
+Ported: one combined model, or two-model routing (``urban_model`` +
+``forrest_model`` + ``forrest_outline``: an urban pass that skips forest-only
+tiles, a forest pass that skips urban-only tiles, fused by the outline), on
+one device of one host.  Runs over more than one host raise
 ``NotImplementedError``.  Left out by decision: the compile warm-up thread
 and the device gate of the JAX package (CUDA streams order the work of the
 predict thread and of the postprocess worker).
@@ -193,9 +195,12 @@ def predict_on_model(config: Dict[str, Any], model_path: str,
 
 
 def predict_tiles(config: Dict[str, Any], on_image_done=None) -> List[str]:
-    """Model inference + stitching — reference ``detection.py:134-253``.
-    Returns the stitched per-image GPKG paths.  Single-model branch only:
-    the two-model branch raises."""
+    """Model inference + stitching (+ two-model fusion) — reference
+    ``detection.py:134-253``.  Returns the stitched per-image GPKG paths.
+
+    ``on_image_done`` is honored on the single-model branch only (the
+    two-model branch fuses per image pairs across two full passes, so
+    per-image downstream work has no correct hook point)."""
     Config()._load_into_config(config)
     logger = config.get("logger")
     t0 = time.time()
@@ -207,10 +212,19 @@ def predict_tiles(config: Dict[str, Any], on_image_done=None) -> List[str]:
     two_model = (config.get("urban_model") and config.get("forrest_model")
                  and config.get("forrest_outline"))
     if two_model:
-        raise NotImplementedError(
-            "two-model routing (urban_model + forrest_model + "
-            "forrest_outline, fused by fusion.fuse_predictions) is not "
-            "ported yet; give 'combined_model'")
+        from treedetection_tpu_torch.fusion import fuse_predictions
+        urban_root = os.path.join(pred_root, "urban")
+        forest_root = os.path.join(pred_root, "forest")
+        predict_on_model(config, config["urban_model"], images,
+                         "only_forest", urban_root)
+        urban_gpkgs = process_and_stitch_predictions(
+            config, urban_root, images)
+        predict_on_model(config, config["forrest_model"], images,
+                         "only_urban", forest_root)
+        forest_gpkgs = process_and_stitch_predictions(
+            config, forest_root, images)
+        outputs = fuse_predictions(config, urban_gpkgs, forest_gpkgs,
+                                   config["forrest_outline"], pred_root)
     else:
         predict_on_model(config, config.get("combined_model", ""), images,
                          None, pred_root, on_image_done=on_image_done)

@@ -1,6 +1,8 @@
-"""Exclusion masking (and, later, urban/forest model fusion).
+"""Urban/forest model fusion and exclusion masking.
 
-* :func:`fuse_predictions` — the two-model merge; not ported yet, raises.
+* :func:`fuse_predictions` — with two models, keep forest-model crowns that
+  intersect the forest outline union and urban-model crowns that do NOT lie
+  within it (reference ``helpers.py:703-834``, selection at ``:804-812``).
 * :func:`exclude_outlines` — drop crowns within the union of user-supplied
   exclusion shapes such as water/buildings (reference ``helpers.py:33-69``).
 
@@ -14,12 +16,15 @@ resolution-bounded (0.5 m default), and robust against invalid geometries
 from __future__ import annotations
 
 import os
+from pathlib import Path
 from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 
 from treedetection_tpu_torch.geo import Affine
 from treedetection_tpu_torch.preprocessing import load_outline_polygons
+from treedetection_tpu_torch.recoveries import (
+    load_fusion_recovery_data, save_fusion_recovery_data)
 from treedetection_tpu_torch.vector import read_gpkg, write_gpkg
 from treedetection_tpu_torch.vector.polygon import ensure_open, polygons_bounds
 from treedetection_tpu_torch.vector.rasterize import rasterize_polygons
@@ -154,7 +159,55 @@ def fuse_predictions(config: Dict[str, Any],
                      forest_gpkgs: Sequence[str],
                      forest_outline: str,
                      output_dir: str) -> List[str]:
-    """Merge urban + forest model outputs per image.  Not ported yet."""
-    raise NotImplementedError(
-        "two-model fusion (fuse_predictions) is not ported yet; run with "
-        "'combined_model'")
+    """Merge urban + forest model outputs per image (reference
+    ``helpers.py:703-834``): forest crowns intersecting the outline union +
+    urban crowns not within it."""
+    logger = config.get("logger")
+    outlines = load_outline_polygons(forest_outline)
+    os.makedirs(output_dir, exist_ok=True)
+    done = set(load_fusion_recovery_data(output_dir))
+    completed = list(done)
+
+    forest_by_stem = {Path(p).stem.replace("_forest", ""): p for p in forest_gpkgs}
+    outputs: List[str] = []
+    for up in urban_gpkgs:
+        stem = Path(up).stem.replace("_urban", "")
+        out = os.path.join(output_dir, f"{stem}.gpkg")
+        outputs.append(out)
+        if stem in done and os.path.exists(out):
+            continue
+        fp = forest_by_stem.get(stem)
+        u_geoms, u_props, srs = read_gpkg(up) if os.path.exists(up) else ([], [], 25832)
+        f_geoms, f_props, srs2 = read_gpkg(fp) if fp and os.path.exists(fp) else ([], [], srs)
+        srs = srs or srs2
+
+        rings_u = [(np.asarray(g[0][0]), p) for g, p in zip(u_geoms, u_props) if g and g[0]]
+        rings_f = [(np.asarray(g[0][0]), p) for g, p in zip(f_geoms, f_props) if g and g[0]]
+        all_rings = [r for r, _ in rings_u + rings_f]
+        if not all_rings:
+            write_gpkg(out, [], [], srs_id=srs)
+            completed.append(stem)
+            save_fusion_recovery_data(output_dir, completed)
+            continue
+        b = polygons_bounds(all_rings)
+        file_bounds = (b[:, 0].min(), b[:, 1].min(), b[:, 2].max(), b[:, 3].max())
+        mask = OutlineMask(outlines, file_bounds)
+
+        keep_geoms, keep_props = [], []
+        for ring, p in rings_f:
+            intersects, _ = mask.polygon_relation(ring)
+            if intersects:
+                keep_geoms.append(ring)
+                keep_props.append(p)
+        for ring, p in rings_u:
+            _, within = mask.polygon_relation(ring)
+            if not within:
+                keep_geoms.append(ring)
+                keep_props.append(p)
+        write_gpkg(out, keep_geoms, keep_props, srs_id=srs)
+        completed.append(stem)
+        save_fusion_recovery_data(output_dir, completed)
+        if logger:
+            logger.info(f"Fused {stem}: {len(keep_geoms)} crowns "
+                        f"({len(rings_f)} forest / {len(rings_u)} urban inputs)")
+    return outputs

@@ -87,9 +87,11 @@ class MaskRCNN(nn.Module):
 
     def forward(self, images: torch.Tensor,
                 roi_pool: Optional[PoolFn] = None) -> ModelOutput:
-        """``roi_pool`` picks the patch pooler of both ROIAlign calls: the K1
-        kernel wrapper by default, or its plain version when passed
-        explicitly."""
+        """Both ROIAlign calls pool through the layout that the environment
+        selects at the call (``TD_ROI_FLAT``, ``TD_ROI_RESIDENT``; see
+        ``ops/roi_align.py``): K1 on the flat buffer by default.  ``roi_pool``
+        replaces the flat layout's pooler, e.g. by K1's plain version; it is
+        refused with another layout."""
         c = self.cfg
         dtype = next(self.parameters()).dtype
         b = images.shape[0]

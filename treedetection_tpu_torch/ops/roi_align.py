@@ -1,11 +1,28 @@
-"""Multilevel ROIAlign (aligned / "V2" semantics), whole-batch flat path.
+"""Multilevel ROIAlign (aligned / "V2" semantics): the whole-batch pooler in
+its three layouts, the single-image pooler and the gather oracle.
 
-Counterpart of the default path of ``treedetection_tpu/ops/roi_align.py``
-(``multilevel_roi_align_batched`` with ``TD_ROI_FLAT=1`` and the small patch
-class off): every box pools from its FPN level through one launch of the
-flat patch pooler (K1, ``ops/kernels/roi_align.py``), and a per-image budget
-of boxes that outspan the 48-row patch is re-pooled exactly through the
-gather tail.  The port reads none of the ``TD_ROI_*`` environment variables.
+Counterpart of ``treedetection_tpu/ops/roi_align.py``.  Every box pools from
+its FPN level through a patch pooler (``ops/kernels/roi_align.py``), and a
+per-image budget of boxes that outspan the 48-row patch is re-pooled exactly
+through the gather tail.  ``multilevel_roi_align_batched`` picks the layout
+of the feature buffers, and with it the kernel, from the environment at each
+call, as the JAX function does:
+
+* default (``TD_ROI_FLAT=1``, ``TD_ROI_RESIDENT=0``): one level-concatenated
+  buffer padded to the widest level, pooled by K1 ``roi_pool_patches_flat``;
+* ``TD_ROI_FLAT=0``: per-level buffers without the width padding, pooled by
+  K5 ``roi_pool_patches``;
+* ``TD_ROI_RESIDENT=1``: the per-level buffers pooled image by image and
+  C-block by C-block by K6 ``roi_pool_resident`` (origins clamped into the
+  unpadded sections, hats folded again).
+
+``TD_ROI_SMALL`` (rows of a small patch class; default 0 = off),
+``TD_ROI_LARGE_FRAC`` and ``TD_ROI_EXACT_FRAC`` steer the three-class scheme
+(see ``_class_params``).  ``TD_ROI_CHUNK``, ``TD_ROI_SLOTS`` and
+``TD_ROI_VMEM_MB`` steer the TPU kernels' DMA pipeline and VMEM budget and
+have no counterpart here; ``TD_PALLAS_ROIALIGN`` and ``TD_PALLAS_INTERPRET``
+neither (a wrapper takes its plain version for CPU tensors and its kernel
+for CUDA tensors).
 
 Semantics: aligned=True coordinates (half-pixel shift), a fixed 2x2 sampling
 grid per bin, detectron2 FPN level assignment, zero contribution from samples
@@ -15,13 +32,16 @@ outside (-1, H).
 from __future__ import annotations
 
 import logging
+import os
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from treedetection_tpu_torch.config import LOGGER_NAME
-from treedetection_tpu_torch.ops.kernels.roi_align import roi_pool_patches_flat
+from treedetection_tpu_torch.ops.kernels.roi_align import (
+    resident_geometry, resident_l2_budget, resident_section_bytes,
+    roi_pool_patches, roi_pool_patches_flat, roi_pool_resident)
 from treedetection_tpu_torch.ops.nms import stable_topk
 
 # Static per-box patch span (rows); the column window is PATCH + 8 because the
@@ -29,11 +49,35 @@ from treedetection_tpu_torch.ops.nms import stable_topk
 PATCH = 48
 CPATCH = PATCH + 8
 
-# Per-image budgets of boxes re-pooled through the exact gather tail (box
-# pool R <= 8, mask pool otherwise); boxes beyond them keep truncated pooling
-# and are flagged in the returned inexact mask.
+# Out-of-span boxes the single-image pooler re-pools through the gather path
+# per call; the excess keeps truncated pooling and is counted.
+FALLBACK_BUDGET = 16
+
+# Three-class patch pooling of the batched pooler.  (1) With a small patch
+# class on (``TD_ROI_SMALL`` rows, nonzero), EVERY box pools through a
+# (small, small+8) window; (2) a per-image budget of ``ceil(LARGE_FRAC * N)``
+# boxes that do not fit it pools again through the full 48-row patch; (3) a
+# per-image budget of ``ceil(EXACT_FRAC * N)`` boxes pools through the exact
+# gather tail, which serves any span: boxes that outspan the 48-row patch
+# first, class-2 spillover after them.  Budgets are per image and go to the
+# highest-scoring boxes first (proposals arrive score-descending, and the
+# stable top-k breaks ties toward the lower index).  Boxes beyond every
+# budget keep truncated pooling and are flagged in the returned inexact mask.
+# Default: small class off, so every box pools through the 48-row patch and
+# exactness does not depend on the span distribution of the proposals.
+SMALL_PATCH_BOX = 0      # resolution <= 8 (7x7 box pool)
+SMALL_PATCH_MASK = 0     # resolution > 8 (14x14 mask pool)
+LARGE_FRAC_BOX = 0.50
+LARGE_FRAC_MASK = 0.25
 EXACT_FRAC_BOX = 0.05
 EXACT_FRAC_MASK = 0.08
+
+# Boxes one block of the resident pooler (K6) serves, box pool and mask pool.
+# The chunk only sets how many blocks are in flight: 32 and 8 give about a
+# thousand blocks at 10 images x 512 proposals / 100 detections x 8 channel
+# slices.  Each image's boxes are padded to a multiple of it.
+RESIDENT_CHUNK_BOX = 32
+RESIDENT_CHUNK_MASK = 8
 
 _logger = logging.getLogger(LOGGER_NAME)
 
@@ -57,10 +101,27 @@ def report_overflow_host(n_over: int, context: str = "",
         f"error on the overhanging bins)")
 
 
-def exact_budget(n_per_image: int, resolution: int) -> int:
-    """Per-image size of the exact gather tail."""
-    frac = EXACT_FRAC_BOX if resolution <= 8 else EXACT_FRAC_MASK
-    return min(n_per_image, int(np.ceil(n_per_image * frac)))
+def _class_params(n_per_image: int, resolution: int) -> Tuple[int, int, int]:
+    """(small_patch, large_budget, exact_budget) of a batched pooling call
+    with ``n_per_image`` boxes per image; budgets are per image.  Read from
+    ``TD_ROI_SMALL``, ``TD_ROI_LARGE_FRAC`` and ``TD_ROI_EXACT_FRAC`` at
+    each call, with the module's constants as defaults."""
+    box = resolution <= 8
+    small = int(os.environ.get(
+        "TD_ROI_SMALL", str(SMALL_PATCH_BOX if box else SMALL_PATCH_MASK)))
+    if small >= PATCH:
+        small = 0
+    lfrac = float(os.environ.get(
+        "TD_ROI_LARGE_FRAC", str(LARGE_FRAC_BOX if box else LARGE_FRAC_MASK)))
+    efrac = float(os.environ.get(
+        "TD_ROI_EXACT_FRAC", str(EXACT_FRAC_BOX if box else EXACT_FRAC_MASK)))
+
+    def budget(frac):
+        return 0 if frac <= 0 else min(n_per_image, int(np.ceil(
+            n_per_image * frac)))
+
+    m_large = budget(lfrac) if small > 0 else 0   # small=0: all boxes large
+    return max(small, 0), m_large, budget(efrac)
 
 
 def assign_fpn_levels(boxes: torch.Tensor, min_level: int = 2,
@@ -204,23 +265,106 @@ def _gather_rows_core(flat: torch.Tensor, bases: np.ndarray, wps: np.ndarray,
     return out.mean(dim=(3, 4))
 
 
+def _gather_batched_rows(kpadded: Sequence[torch.Tensor], hs: np.ndarray,
+                         ws: np.ndarray, boxes: torch.Tensor,
+                         levels: torch.Tensor, img: torch.Tensor,
+                         resolution: int, strides: Sequence[int],
+                         sampling_ratio: int) -> torch.Tensor:
+    """Exact gather ROIAlign of M (box, level, image) triples against the
+    per-level row-concatenated buffers: the flat row index gains the image's
+    row base ``img * (H_l + PATCH)`` and the level's padded width."""
+    c = kpadded[0].shape[-1]
+    flat = torch.cat([k.reshape(-1, c) for k in kpadded], dim=0)
+    sizes = np.asarray([k.shape[0] * k.shape[1] for k in kpadded])
+    bases = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    return _gather_rows_core(flat, bases, np.asarray(ws) + CPATCH, hs, ws,
+                             boxes, levels, img, resolution, strides,
+                             sampling_ratio)
+
+
+def multilevel_roi_align_gather(fmaps: Sequence[torch.Tensor],
+                                boxes: torch.Tensor, resolution: int,
+                                strides: Sequence[int],
+                                sampling_ratio: int = 2) -> torch.Tensor:
+    """Gather-based multilevel ROIAlign of one image (the oracle of the
+    patch poolers): ``fmaps[l]`` (H_l, W_l, C), ``boxes`` (N, 4) ->
+    (N, R, R, C) float32.  Every level is flattened to rows of one
+    (sum HW, C) buffer and each bilinear corner is one row gather."""
+    c = fmaps[0].shape[-1]
+    hs = np.asarray([f.shape[0] for f in fmaps])
+    ws = np.asarray([f.shape[1] for f in fmaps])
+    flat = torch.cat([f.reshape(-1, c) for f in fmaps], dim=0)
+    bases = np.concatenate([[0], np.cumsum(hs * ws)[:-1]])
+    levels = assign_fpn_levels(boxes, min_level=2, max_level=1 + len(fmaps))
+    img = torch.zeros_like(levels)
+    return _gather_rows_core(flat, bases, ws, hs, ws, boxes, levels, img,
+                             resolution, strides, sampling_ratio)
+
+
 PoolFn = Callable[..., torch.Tensor]
 
 
+class BoxGeometry(NamedTuple):
+    """Per-box patch geometry of one pooling call (N boxes in all)."""
+    flat_boxes: torch.Tensor  # (N, 4)
+    img: torch.Tensor         # (N,) int64 image index
+    levels: torch.Tensor      # (N,) int64 FPN level (0-based)
+    oy: torch.Tensor          # (N,) int64 window row in the level's map
+    ox_al: torch.Tensor       # (N,) int64 window column, multiple of 8
+    sy: torch.Tensor          # (N, R*S) sample rows relative to oy
+    sx_al: torch.Tensor       # (N, R*S) sample columns relative to ox_al
+    valid_y: torch.Tensor     # (N, R*S) bool
+    valid_x: torch.Tensor     # (N, R*S) bool
+    ay: torch.Tensor          # (N, R, PATCH) float32
+    ax: torch.Tensor          # (N, R, CPATCH) float32
+    overflow: torch.Tensor    # (N,) bool: samples outspan the 48-row window
+    hs: np.ndarray            # (L,) level heights
+    ws: np.ndarray            # (L,) level widths
+
+
+def _box_geometry(flat_boxes: torch.Tensor, img: torch.Tensor,
+                  hs: np.ndarray, ws: np.ndarray, strides: Sequence[int],
+                  resolution: int, sampling_ratio: int) -> BoxGeometry:
+    levels, oy, ox, sy, sx, valid_y, valid_x = _patch_pool_prep(
+        flat_boxes, hs, ws, strides, resolution, sampling_ratio, len(hs))
+    ox_al = (ox // 8) * 8
+    sx_al = sx + (ox - ox_al).to(flat_boxes.dtype)[:, None]
+    ay, ax = _fold_hats(sy, sx_al, valid_y, valid_x, resolution,
+                        sampling_ratio, CPATCH)
+    overflow = ((sy.amax(dim=1) > PATCH - 1)
+                | (sx_al.amax(dim=1) > CPATCH - 1))
+    return BoxGeometry(flat_boxes=flat_boxes, img=img, levels=levels, oy=oy,
+                       ox_al=ox_al, sy=sy, sx_al=sx_al, valid_y=valid_y,
+                       valid_x=valid_x, ay=ay.contiguous(),
+                       ax=ax.contiguous(), overflow=overflow, hs=hs, ws=ws)
+
+
+def _batched_geometry(fmaps: Sequence[torch.Tensor], boxes: torch.Tensor,
+                      resolution: int, strides: Sequence[int],
+                      sampling_ratio: int) -> BoxGeometry:
+    b, n = boxes.shape[0], boxes.shape[1]
+    img = torch.arange(b, device=boxes.device).repeat_interleave(n)
+    hs = np.asarray([f.shape[1] for f in fmaps])
+    ws = np.asarray([f.shape[2] for f in fmaps])
+    return _box_geometry(boxes.reshape(b * n, 4), img, hs, ws, strides,
+                         resolution, sampling_ratio)
+
+
 class FlatPoolInputs(NamedTuple):
-    """Everything a flat pooling call needs, from one batch of boxes."""
+    """What a flat pooling call (K1) needs, from one batch of boxes."""
     kcat: torch.Tensor        # (sum_l B*(H_l+PATCH), W_max+CPATCH, C)
     rows: torch.Tensor        # (B*N,) int32 absolute window row
     cols: torch.Tensor        # (B*N,) int32 window column, multiple of 8
-    ay: torch.Tensor          # (B*N, R, PATCH) float32
-    ax: torch.Tensor          # (B*N, R, CPATCH) float32
-    overflow: torch.Tensor    # (B*N,) bool — samples outspan the window
-    levels: torch.Tensor      # (B*N,) int64 FPN level (0-based)
-    img: torch.Tensor         # (B*N,) int64 image index
-    flat_boxes: torch.Tensor  # (B*N, 4)
-    hs: np.ndarray            # (L,) level heights
-    ws: np.ndarray            # (L,) level widths
     lvl_base: np.ndarray      # (L,) first kcat row of each level's sections
+    geom: BoxGeometry
+
+    @property
+    def ay(self) -> torch.Tensor:
+        return self.geom.ay
+
+    @property
+    def ax(self) -> torch.Tensor:
+        return self.geom.ax
 
 
 def flat_pool_inputs(fmaps: Sequence[torch.Tensor], boxes: torch.Tensor,
@@ -228,13 +372,11 @@ def flat_pool_inputs(fmaps: Sequence[torch.Tensor], boxes: torch.Tensor,
                      sampling_ratio: int = 2) -> FlatPoolInputs:
     """Build the level-concatenated buffer and every box's window origin
     and hat matrices (see :func:`multilevel_roi_align_batched`)."""
-    b, n = boxes.shape[0], boxes.shape[1]
+    b = boxes.shape[0]
     c = fmaps[0].shape[-1]
     dev = boxes.device
-    flat_boxes = boxes.reshape(b * n, 4)
-    img = torch.arange(b, device=dev).repeat_interleave(n)
-    hs = np.asarray([f.shape[1] for f in fmaps])
-    ws = np.asarray([f.shape[2] for f in fmaps])
+    g = _batched_geometry(fmaps, boxes, resolution, strides, sampling_ratio)
+    hs, ws = g.hs, g.ws
 
     # ONE uniform-width buffer for every (level, image) section: image b of
     # level l starts at row lvl_base[l] + b * (H_l + PATCH); the bottom and
@@ -249,21 +391,140 @@ def flat_pool_inputs(fmaps: Sequence[torch.Tensor], boxes: torch.Tensor,
         sec = kcat[int(lvl_base[l]):int(lvl_base[l] + sec_rows[l])]
         sec.view(b, h + PATCH, wmax, c)[:, :h, :w] = f
 
-    levels, oy, ox, sy, sx, valid_y, valid_x = _patch_pool_prep(
-        flat_boxes, hs, ws, strides, resolution, sampling_ratio, len(fmaps))
-    ox_al = (ox // 8) * 8
-    sx_al = sx + (ox - ox_al).to(flat_boxes.dtype)[:, None]
-    ay, ax = _fold_hats(sy, sx_al, valid_y, valid_x, resolution,
-                        sampling_ratio, CPATCH)
-    overflow = ((sy.amax(dim=1) > PATCH - 1)
-                | (sx_al.amax(dim=1) > CPATCH - 1))
-    row_base = img * torch.as_tensor(hs + PATCH, device=dev)[levels]
-    abs_row = torch.as_tensor(lvl_base, device=dev)[levels] + row_base + oy
+    row_base = g.img * torch.as_tensor(hs + PATCH, device=dev)[g.levels]
+    abs_row = torch.as_tensor(lvl_base, device=dev)[g.levels] + row_base + g.oy
     return FlatPoolInputs(
         kcat=kcat, rows=abs_row.to(torch.int32).contiguous(),
-        cols=ox_al.to(torch.int32).contiguous(), ay=ay.contiguous(),
-        ax=ax.contiguous(), overflow=overflow, levels=levels, img=img,
-        flat_boxes=flat_boxes, hs=hs, ws=ws, lvl_base=lvl_base)
+        cols=g.ox_al.to(torch.int32).contiguous(), lvl_base=lvl_base, geom=g)
+
+
+class LevelPoolInputs(NamedTuple):
+    """What a per-level pooling call (K5) needs, from one batch of boxes."""
+    kpadded: Tuple[torch.Tensor, ...]   # per level (B*(H_l+PATCH), W_l+CPATCH, C)
+    meta: torch.Tensor        # (B*N, 3) int32 [level, img*(H_l+PATCH)+oy, ox_al]
+    geom: BoxGeometry
+
+    @property
+    def ay(self) -> torch.Tensor:
+        return self.geom.ay
+
+    @property
+    def ax(self) -> torch.Tensor:
+        return self.geom.ax
+
+
+def level_pool_inputs(fmaps: Sequence[torch.Tensor], boxes: torch.Tensor,
+                      resolution: int, strides: Sequence[int],
+                      sampling_ratio: int = 2) -> LevelPoolInputs:
+    """Build the per-level row-concatenated buffers (image b of level l at
+    rows [b*(H_l+PATCH), (b+1)*(H_l+PATCH)), no padding to a common width)
+    and every box's ``meta`` row and hat matrices."""
+    b = boxes.shape[0]
+    c = fmaps[0].shape[-1]
+    dev = boxes.device
+    g = _batched_geometry(fmaps, boxes, resolution, strides, sampling_ratio)
+    kpadded = []
+    for l, f in enumerate(fmaps):
+        h, w = int(g.hs[l]), int(g.ws[l])
+        buf = torch.zeros((b * (h + PATCH), w + CPATCH, c), dtype=f.dtype,
+                          device=dev)
+        buf.view(b, h + PATCH, w + CPATCH, c)[:, :h, :w] = f
+        kpadded.append(buf)
+    row_base = g.img * torch.as_tensor(g.hs + PATCH, device=dev)[g.levels]
+    meta = torch.stack([g.levels, row_base + g.oy, g.ox_al], dim=1)
+    return LevelPoolInputs(kpadded=tuple(kpadded),
+                           meta=meta.to(torch.int32).contiguous(), geom=g)
+
+
+class ResidentPoolInputs(NamedTuple):
+    """What a resident pooling call (K6) needs: image-relative clamped
+    origins, hats folded for them, each image's boxes padded to a chunk
+    multiple."""
+    kpadded: Tuple[torch.Tensor, ...]
+    meta: torch.Tensor        # (B*(N+pad), 3) int32 [level, r0, c0]
+    ay: torch.Tensor          # (B*(N+pad), R, PATCH) float32
+    ax: torch.Tensor          # (B*(N+pad), R, CPATCH) float32
+    chunk: int
+    n_images: int
+    c_split: int
+    pad_per: int              # padding boxes at the end of each image's list
+
+
+def resident_c_split(kpadded: Sequence[torch.Tensor], n_images: int) -> int:
+    """The smallest C-split (1, 2, 4, ... with C % c_split == 0) whose
+    per-image sections fit the share of L2 that K6 counts on; raises if none
+    does (the pooler does not quietly change kernels)."""
+    c = kpadded[0].shape[-1]
+    hs = [f.shape[0] // n_images - PATCH for f in kpadded]
+    ws = [f.shape[1] - CPATCH for f in kpadded]
+    itemsize = kpadded[0].element_size()
+    budget = resident_l2_budget(kpadded[0].device)
+    s = 1
+    while c % s == 0:
+        if resident_section_bytes(hs, ws, c // s, PATCH, itemsize) <= budget:
+            return s
+        s *= 2
+    raise RuntimeError(
+        f"TD_ROI_RESIDENT=1: no C-split of C={c} brings one image's sections "
+        f"({resident_section_bytes(hs, ws, c, PATCH, itemsize)} bytes whole) "
+        f"under the L2 budget of {budget} bytes; unset TD_ROI_RESIDENT")
+
+
+def resident_pool_inputs(p: LevelPoolInputs, resolution: int,
+                         sampling_ratio: int, n_images: int,
+                         chunk: Optional[int] = None,
+                         c_split: Optional[int] = None) -> ResidentPoolInputs:
+    """From the per-level inputs to the resident pooler's: clamp the window
+    origins into the unpadded sections ((max(H_l, PATCH), max(W_l, CPATCH)),
+    from the buffers' shapes), shift the patch-relative sample coordinates
+    by the clamp and fold the hat matrices again (a clamped window still
+    holds the whole in-image span of a fitting box), then pad each image's
+    boxes to a multiple of ``chunk`` with zero hats and ``meta`` 0."""
+    g = p.geom
+    dev = g.levels.device
+    n = g.levels.shape[0]
+    n_per = n // n_images
+    if c_split is None:
+        c_split = resident_c_split(p.kpadded, n_images)
+    _, sec_hs, sec_ws = resident_geometry(p.kpadded, n_images, PATCH)
+    max_r0 = torch.tensor([h - PATCH for h in sec_hs], device=dev)[g.levels]
+    max_c0 = torch.tensor([w - CPATCH for w in sec_ws], device=dev)[g.levels]
+    r0 = torch.minimum(g.oy, max_r0)
+    c0 = torch.minimum(g.ox_al, max_c0)
+    sy2 = g.sy + (g.oy - r0).to(g.sy.dtype)[:, None]
+    sx2 = g.sx_al + (g.ox_al - c0).to(g.sx_al.dtype)[:, None]
+    ay, ax = _fold_hats(sy2, sx2, g.valid_y, g.valid_x, resolution,
+                        sampling_ratio, CPATCH)
+    meta = torch.stack([g.levels, r0, c0], dim=1).to(torch.int32)
+    if chunk is None:
+        chunk = RESIDENT_CHUNK_BOX if resolution <= 8 else RESIDENT_CHUNK_MASK
+    chunk = max(min(chunk, n_per), 1)
+    pad_per = (-n_per) % chunk
+    if pad_per:
+        def pad_img(a):
+            a = a.reshape((n_images, n_per) + a.shape[1:])
+            pad = a.new_zeros((n_images, pad_per) + a.shape[2:])
+            return torch.cat([a, pad], dim=1).reshape(
+                (n_images * (n_per + pad_per),) + a.shape[2:])
+        meta, ay, ax = pad_img(meta), pad_img(ay), pad_img(ax)
+    return ResidentPoolInputs(
+        kpadded=p.kpadded, meta=meta.contiguous(), ay=ay.contiguous(),
+        ax=ax.contiguous(), chunk=chunk, n_images=n_images, c_split=c_split,
+        pad_per=pad_per)
+
+
+def _launch_resident_kernel(p: LevelPoolInputs, resolution: int,
+                            sampling_ratio: int, n_images: int
+                            ) -> torch.Tensor:
+    """Pool every box through K6 and cut each image's padding boxes off."""
+    r = resident_pool_inputs(p, resolution, sampling_ratio, n_images)
+    out = roi_pool_resident(r.kpadded, r.meta, r.ay, r.ax, resolution, PATCH,
+                            r.chunk, r.n_images, r.c_split)
+    if r.pad_per:
+        n_per = out.shape[0] // n_images - r.pad_per
+        out = out.reshape((n_images, n_per + r.pad_per) + out.shape[1:])
+        out = out[:, :n_per].reshape((n_images * n_per,) + out.shape[2:])
+    return out
 
 
 def multilevel_roi_align_batched(fmaps: Sequence[torch.Tensor],
@@ -276,51 +537,163 @@ def multilevel_roi_align_batched(fmaps: Sequence[torch.Tensor],
     ``boxes`` (B, N, 4) float32 -> ((B, N, R, R, C) in the feature dtype,
     (B, N) bool inexact mask).
 
-    Every (level, image) section is row-concatenated into ONE zero-padded
-    (sum_l B*(H_l+PATCH), W_max+CPATCH, C) buffer, so a box's window origin
-    is a single absolute row and an 8-aligned column, and one launch of
-    ``pool`` (default: the K1 kernel wrapper; pass
-    ``roi_pool_patches_flat_reference`` for the plain version) pools every
-    box.  Boxes whose samples outspan the window are re-pooled exactly
-    through the gather tail, highest-scoring first (proposals arrive
-    score-descending, and the stable top-k breaks ties toward lower index),
-    up to the per-image budget; the rest stay truncated and are flagged.
+    The layout of the feature buffers follows ``TD_ROI_FLAT`` (default 1)
+    and ``TD_ROI_RESIDENT`` (default 0), read here at each call (see the
+    module docstring): one zero-padded level-concatenated buffer pooled by
+    K1, per-level buffers pooled by K5, or the per-level buffers pooled
+    image by image by K6.  ``pool`` replaces the flat layout's pooler (pass
+    ``roi_pool_patches_flat_reference`` for the plain version); it is not
+    taken with another layout.
+
+    One launch pools every box; with a small patch class on, the boxes that
+    do not fit it pool again through the 48-row patch within a per-image
+    budget; and boxes whose samples outspan even that window are re-pooled
+    exactly through the gather tail, highest-scoring first, up to their
+    per-image budget.  The rest stay truncated and are flagged.
     Geometries whose boxes could outspan the patch on every level pool every
     box through the gather path.
     """
-    pool = roi_pool_patches_flat if pool is None else pool
     b, n = boxes.shape[0], boxes.shape[1]
     c = fmaps[0].shape[-1]
-    p = flat_pool_inputs(fmaps, boxes, resolution, strides, sampling_ratio)
-    wmax = p.kcat.shape[1]
+    dev = boxes.device
+    use_flat = os.environ.get("TD_ROI_FLAT", "1") == "1"
+    use_resident = os.environ.get("TD_ROI_RESIDENT", "0") == "1"
+    flat_layout = use_flat and not use_resident
+    if pool is not None and not flat_layout:
+        raise ValueError("'pool' replaces the flat layout's pooler; it cannot "
+                         "be given with TD_ROI_FLAT=0 or TD_ROI_RESIDENT=1")
 
-    def gather(sel):
-        return _gather_rows_core(
-            p.kcat.reshape(-1, c), p.lvl_base * wmax,
-            np.full(len(fmaps), wmax), p.hs, p.ws, p.flat_boxes[sel],
-            p.levels[sel], p.img[sel], resolution, strides, sampling_ratio)
+    if flat_layout:
+        pool = roi_pool_patches_flat if pool is None else pool
+        p = flat_pool_inputs(fmaps, boxes, resolution, strides, sampling_ratio)
+        g = p.geom
+        wmax = p.kcat.shape[1]
 
-    img_span = max(int(h) * s for h, s in zip(p.hs, strides))
+        def launch(sel, patch):
+            return pool(p.kcat, p.rows[sel], p.cols[sel],
+                        g.ay[sel][:, :, :patch].contiguous(),
+                        g.ax[sel][:, :, :patch + 8].contiguous(), resolution,
+                        patch)
+
+        def gather(sel):
+            return _gather_rows_core(
+                p.kcat.reshape(-1, c), p.lvl_base * wmax,
+                np.full(len(fmaps), wmax), g.hs, g.ws, g.flat_boxes[sel],
+                g.levels[sel], g.img[sel], resolution, strides,
+                sampling_ratio)
+    else:
+        p = level_pool_inputs(fmaps, boxes, resolution, strides,
+                              sampling_ratio)
+        g = p.geom
+
+        def launch(sel, patch):
+            return roi_pool_patches(
+                p.kpadded, p.meta[sel].contiguous(),
+                g.ay[sel][:, :, :patch].contiguous(),
+                g.ax[sel][:, :, :patch + 8].contiguous(), resolution, patch)
+
+        def gather(sel):
+            return _gather_batched_rows(
+                p.kpadded, g.hs, g.ws, g.flat_boxes[sel], g.levels[sel],
+                g.img[sel], resolution, strides, sampling_ratio)
+
+    everything = slice(None)
+    img_span = max(int(h) * s for h, s in zip(g.hs, strides))
     if img_span / strides[-1] > PATCH - 2:
-        out = gather(slice(None)).to(p.kcat.dtype)
+        out = gather(everything).to(fmaps[0].dtype)
         return (out.reshape(b, n, resolution, resolution, c),
-                torch.zeros((b, n), dtype=torch.bool, device=boxes.device))
+                torch.zeros((b, n), dtype=torch.bool, device=dev))
 
-    out = pool(p.kcat, p.rows, p.cols, p.ay, p.ax, resolution, PATCH)
+    # hat weights beyond a FITTING box's span are exactly zero, so slicing
+    # the hat matrices IS the small-patch pooling
+    small, m_large, m_exact = _class_params(n, resolution)
+    need_exact = g.overflow.reshape(b, n)      # outspans even the 48-patch
+    if small:
+        fits_small = ~((g.sy.amax(dim=1) > small - 1)
+                       | (g.sx_al.amax(dim=1) > small + 8 - 1))
+        need_large = ~fits_small.reshape(b, n) & ~need_exact
+        out = launch(everything, small)
+    else:
+        need_large = torch.zeros((b, n), dtype=torch.bool, device=dev)
+        if use_resident:
+            out = _launch_resident_kernel(p, resolution, sampling_ratio, b)
+        else:
+            out = launch(everything, PATCH)
 
-    sel_exact = torch.zeros(b * n, dtype=torch.bool, device=boxes.device)
-    m_exact = exact_budget(n, resolution)
+    img_base = torch.arange(b, device=dev)[:, None] * n
+    sel_large = torch.zeros(b * n, dtype=torch.bool, device=dev)
+    if small and m_large > 0:
+        flag_l, idx_l = stable_topk(need_large.to(torch.float32), m_large)
+        flat_l = (img_base + idx_l).reshape(-1)
+        take_l = (flag_l > 0).reshape(-1)
+        out_l = launch(flat_l, PATCH)
+        out[flat_l] = torch.where(take_l[:, None, None, None],
+                                  out_l.to(out.dtype), out[flat_l])
+        sel_large[flat_l] = take_l
+
+    sel_exact = torch.zeros(b * n, dtype=torch.bool, device=dev)
     if m_exact > 0:
-        flag, idx = stable_topk(
-            p.overflow.reshape(b, n).to(torch.float32) * 2.0, m_exact)
-        flat_e = (torch.arange(b, device=boxes.device)[:, None] * n
-                  + idx).reshape(-1)
-        take = (flag > 0).reshape(-1)
+        # beyond-48 boxes first, then class-2 spillover the large budget
+        # missed; ties break toward lower index == higher proposal score
+        prio = (need_exact.to(torch.float32) * 2.0
+                + (need_large & ~sel_large.reshape(b, n)).to(torch.float32))
+        flag_e, idx_e = stable_topk(prio, m_exact)
+        flat_e = (img_base + idx_e).reshape(-1)
+        take_e = (flag_e > 0).reshape(-1)
         fb = gather(flat_e)
-        out[flat_e] = torch.where(take[:, None, None, None], fb.to(out.dtype),
-                                  out[flat_e])
-        sel_exact[flat_e] = take
+        out[flat_e] = torch.where(take_e[:, None, None, None],
+                                  fb.to(out.dtype), out[flat_e])
+        sel_exact[flat_e] = take_e
 
-    inexact = p.overflow & ~sel_exact
+    inexact = ((need_large | need_exact).reshape(-1)
+               & ~sel_large & ~sel_exact)
     return (out.reshape(b, n, resolution, resolution, c),
             inexact.reshape(b, n))
+
+
+def multilevel_roi_align(fmaps: Sequence[torch.Tensor], boxes: torch.Tensor,
+                         resolution: int, strides: Sequence[int],
+                         sampling_ratio: int = 2,
+                         return_overflow: bool = False):
+    """Single-image multilevel ROIAlign: ``fmaps[l]`` (H_l, W_l, C),
+    ``boxes`` (N, 4) -> (N, R, R, C) in the feature dtype, and with
+    ``return_overflow`` the count of boxes left truncated.
+
+    Every box pools through K5 ``roi_pool_patches`` from the per-level
+    zero-padded maps (``meta = [level, oy, ox_al]``); up to
+    ``FALLBACK_BUDGET`` boxes whose samples outspan the window are re-pooled
+    through the gather path, lowest index first.  Geometries whose boxes
+    could outspan the patch on every level pool through the gather path
+    alone.  (Training calls the JAX function with ``pallas=False`` for a
+    differentiable path; this one is the inference path and defines no
+    gradient.)
+    """
+    dtype = fmaps[0].dtype
+    dev = boxes.device
+    n = boxes.shape[0]
+    img_span = max(f.shape[0] * s for f, s in zip(fmaps, strides))
+    if img_span / strides[-1] > PATCH - 2:
+        out = multilevel_roi_align_gather(fmaps, boxes, resolution, strides,
+                                          sampling_ratio).to(dtype)
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        return (out, zero) if return_overflow else out
+
+    p = level_pool_inputs([f[None] for f in fmaps], boxes[None], resolution,
+                          strides, sampling_ratio)
+    g = p.geom
+    out = roi_pool_patches(p.kpadded, p.meta, g.ay, g.ax, resolution, PATCH)
+    inexact = g.overflow
+    m = min(FALLBACK_BUDGET, n)
+    if m > 0:
+        flag, idx = stable_topk(g.overflow.to(torch.float32), m)
+        fb = multilevel_roi_align_gather(fmaps, boxes[idx], resolution,
+                                         strides, sampling_ratio)
+        take = flag > 0
+        out[idx] = torch.where(take[:, None, None, None], fb.to(out.dtype),
+                               out[idx])
+        sel = torch.zeros(n, dtype=torch.bool, device=dev)
+        sel[idx] = take
+        inexact = g.overflow & ~sel
+    if return_overflow:
+        return out, inexact.sum().to(torch.int32)
+    return out

@@ -10,8 +10,8 @@ The within-box test is a pure interval check on each crown's
 vertex extrema — done vectorized over the whole tile's crowns at once; no
 GEOS sjoin needed (the boxes are axis-aligned by construction).
 
-Not ported yet: the RLE branch for detectree2-format prediction files (it
-needs the ``compat`` module); such a file raises ``NotImplementedError``.
+Prediction files in the detectree2 format (an RLE ``segmentation`` instead
+of ``polygon_coords``) are decoded and traced through ``compat``.
 """
 
 from __future__ import annotations
@@ -96,10 +96,14 @@ def stitch_tile_file(pred_file: str, simplify_tolerance: float,
         if coords:
             ring = np.asarray(coords[0], dtype=np.float64).reshape(-1, 2)
         elif "segmentation" in crown:
-            raise NotImplementedError(
-                f"{pred_file}: RLE ('segmentation') prediction files need the "
-                f"compat module (rle_decode, polygon_from_mask), which the "
-                f"port does not have yet")
+            # RLE fallback for detectree2-format prediction files
+            # (reference helpers.py:443-457)
+            from treedetection_tpu_torch.compat import (polygon_from_mask,
+                                                        rle_decode)
+            flat = polygon_from_mask(rle_decode(crown["segmentation"]))
+            if not flat:
+                continue
+            ring = np.asarray(flat, dtype=np.float64).reshape(-1, 2)
         else:
             continue
         rings.append(ring)
