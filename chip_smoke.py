@@ -16,8 +16,9 @@ build,kernel,predictor,model,pipeline,pipeline_two_model:
                plain PyTorch versions and against each other on the same
                boxes at production shapes (box pool N=5120 R=7, mask pool
                N=1000 R=14, 1024^2 input at batch 10, C=256), in float32
-               with TF32 off and in bfloat16; K2/K3/K4 (the pairwise
-               dedupe, containment and IoU masks) against their plain versions
+               with TF32 off and in bfloat16 (K6 in bfloat16 also timed at
+               1 to 32 boxes per block); K2/K3/K4 (the pairwise dedupe,
+               containment and IoU masks) against their plain versions
                with EXACT equality at one production row block (8192 rows x
                32768 columns), at ragged and square shapes, and on
                adversarial rows; medians of CUDA event timings, and the bound
@@ -77,6 +78,7 @@ PEAK_FLOPS = {"float32": 67e12,     # CUDA cores, no tensor cores
 PHASES = ("build", "kernel", "predictor", "model", "pipeline",
           "pipeline_two_model")
 ROI_LIBRARIES = ("roi_pool_flat", "roi_pool_levels", "roi_pool_resident")
+K6_CHUNKS = (1, 2, 4, 8, 16, 32)   # boxes per block timed in the kernel phase
 PAIRWISE_BLOCK_ROWS, PAIRWISE_COLS = 8192, 32768   # one production row block
 # float32 operations per (row, column) pair, counted from the arithmetic:
 # intersection 9 (2 min, 2 max, 2 sub, 2 clamp, 1 mul); IoU +5 (add, sub,
@@ -222,17 +224,19 @@ def _touched_cells(shape2d, rows, cols, patch, cpatch):
 
 
 def pool_bound(feature_bytes, n, c, item, ay, ax, resolution, dtype_name,
-               index_bytes, hat_reads=1):
+               index_bytes, n_pooled=None):
     """Least time the card could take for one pooling call: the larger of
     the bytes the function must move (``feature_bytes`` of the feature
     buffers, the index and hat inputs, the output) over HBM bandwidth and
-    its FLOPs over the peak for the type."""
+    its FLOPs over the peak for the type.  ``n_pooled`` of the ``n`` boxes
+    need the contractions (all of them unless given)."""
     patch, cpatch = ay.shape[-1], ax.shape[-1]
+    n_pooled = n if n_pooled is None else n_pooled
     nbytes = (feature_bytes + index_bytes * n
-              + 4 * hat_reads * (ay.numel() + ax.numel())
+              + 4 * (ay.numel() + ax.numel())
               + n * resolution * resolution * c * item)
-    flops = 2 * n * c * (resolution * patch * cpatch
-                         + resolution * resolution * cpatch)
+    flops = 2 * n_pooled * c * (resolution * patch * cpatch
+                                + resolution * resolution * cpatch)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -265,19 +269,29 @@ def k5_bound(inputs, resolution, dtype_name):
 
 
 def k6_bound(inputs, resolution, dtype_name):
-    """K6, by its contract: every image's unpadded sections once per C-block
-    (each cell once in all), the hats once per C-block, 12 index bytes per
-    box, the output (padding boxes included: they are inputs too)."""
-    from treedetection_tpu_torch.ops.kernels.roi_align import (
-        resident_section_bytes)
+    """K6: as K5, the cells of the level buffers that the clamped windows
+    touch (on image-absolute rows; a padding box has zero hats and needs no
+    cell and no operation), the hats once, 12 index bytes per box, the output
+    (the padding boxes' rows are inputs and outputs too).  Reading the hats again for
+    every C-block is the kernel's design, not the function's need."""
+    import torch
     r = inputs
     c, item = r.kpadded[0].shape[-1], r.kpadded[0].element_size()
-    patch, cpatch = r.ay.shape[-1], r.ax.shape[-1]
-    hs = [k.shape[0] // r.n_images - patch for k in r.kpadded]
-    ws = [k.shape[1] - cpatch for k in r.kpadded]
-    feature_bytes = r.n_images * resident_section_bytes(hs, ws, c, patch, item)
-    return pool_bound(feature_bytes, r.meta.shape[0], c, item, r.ay, r.ax,
-                      resolution, dtype_name, 12, hat_reads=r.c_split)
+    n, dev = r.meta.shape[0], r.meta.device
+    src_hs = torch.tensor([k.shape[0] // r.n_images for k in r.kpadded],
+                          device=dev)
+    meta = r.meta.long()
+    image = torch.arange(n, device=dev) // (n // r.n_images)
+    absolute = torch.stack([meta[:, 0], image * src_hs[meta[:, 0]] + meta[:, 1],
+                            meta[:, 2]], dim=1)
+    real = _cut_padding(absolute, r)
+    cells = 0
+    for level, buf in enumerate(r.kpadded):
+        m = real[real[:, 0] == level]
+        cells += _touched_cells(buf.shape[:2], m[:, 1], m[:, 2],
+                                r.ay.shape[-1], r.ax.shape[-1])
+    return pool_bound(cells * c * item, n, c, item, r.ay, r.ax, resolution,
+                      dtype_name, 12, n_pooled=real.shape[0])
 
 
 def tolerance(ref, dtype_name):
@@ -382,6 +396,31 @@ def phase_kernel(state):
                 row.update(bound)
                 emit(row)
                 summary.setdefault(name, {})[(pool, dname)] = row
+            if dtype == torch.bfloat16:
+                # K6 by the boxes one block serves, at the C-split the
+                # launcher picks: what the pooler's chunk constants rest on
+                by_chunk = {}
+                for chunk in K6_CHUNKS:
+                    ri = resident_pool_inputs(lvl, r, 2, b, chunk=chunk,
+                                              c_split=picked)
+                    args = (ri.kpadded, ri.meta, ri.ay, ri.ax, r, PATCH,
+                            ri.chunk, b, picked)
+                    got = _cut_padding(k.roi_pool_resident(*args), ri)
+                    ok, err, tol = check_close(got, k1_out, dname)
+                    if not ok:
+                        fail(f"kernel k6 {pool} chunk {chunk}: differs from "
+                             f"K1 on the same boxes by {err} vs {tol}")
+                    del got
+                    by_chunk[chunk] = _timed_ms(
+                        lambda: k.roi_pool_resident(*args))
+                    del ri, args
+                emit({"phase": "kernel", "kernel": "k6_by_chunk",
+                      "pool": pool, "dtype": dname, "c_split": picked,
+                      "ms_by_chunk": by_chunk,
+                      "chunk_of_the_pooler": res[picked].chunk,
+                      "k1_ms": summary["k1"][(pool, dname)]["ms"],
+                      "k5_ms": summary["k5"][(pool, dname)]["ms"]})
+                summary.setdefault("k6_by_chunk", {})[pool] = by_chunk
             del k1_out, flat, lvl, res, calls
             torch.cuda.empty_cache()
 
@@ -1257,6 +1296,7 @@ def kernels_line(state):
                     "pipeline": pipe["launches"]["k6"]},
                    f"; on the path under TD_ROI_RESIDENT=1; headline numbers "
                    f"at c_split={picked}, which the launcher picks in bf16")]
+    kernels[-1]["ms_by_chunk_bf16"] = roi["k6_by_chunk"]
     for mode, (number, wrapper, line) in PAIR_KERNELS.items():
         r = state["pairwise"][mode]
         kernels.append({

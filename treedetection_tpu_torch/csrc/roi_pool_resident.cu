@@ -38,10 +38,13 @@
 // overlap in time at the boundary, and the H100's L2 is built as two
 // partitions.  No persisting access window is set.
 //
-// What bounds it: memory.  The bytes it must move are every image's sections
-// once per C-block (each cell once in total), the hat matrices once per
-// C-block, the indices and the output.  Reads outside a section are zeros
-// (the clamp keeps every window inside it).  Padding boxes (zero hats, meta
+// What bounds it: memory.  The bytes the function must move are the cells of
+// the sections that the clamped windows touch (each once), the hat matrices,
+// the indices and the output; this design reads the hat matrices once per
+// 32-channel slice on top of that.  A block's boxes run one after the other,
+// so a small chunk (1 or 2 boxes) keeps more loads in flight than a large
+// one.  Reads outside a section are zeros (the clamp keeps every window
+// inside it).  Padding boxes (zero hats, meta
 // 0) pool level 0 at the origin into zeros; the caller cuts them off.
 
 #include "roi_pool_window.cuh"

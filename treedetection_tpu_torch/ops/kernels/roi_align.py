@@ -210,18 +210,30 @@ def roi_pool_patches_flat_reference(fcat: torch.Tensor, rows: torch.Tensor,
 
 # --- K5: per-level buffers -----------------------------------------------------
 
+def _raise_on_fault(faults) -> None:
+    """``faults``: message -> bool tensor of the rows at fault.  All are
+    reduced on the tensors' device and fetched together, so a call on the
+    card pays one synchronisation for its value checks."""
+    flags = torch.stack([f.any() for f in faults.values()]).tolist()
+    for message, flag in zip(faults, flags):
+        if flag:
+            raise ValueError(message)
+
+
+def _level_faults(n_levels: int, meta: torch.Tensor):
+    return {f"meta[:, 0] must be a level in [0, {n_levels})":
+            (meta[:, 0] < 0) | (meta[:, 0] >= n_levels),
+            "meta[:, 2] must be multiples of 8": meta[:, 2] % 8 != 0}
+
+
 def _check_levels(fmaps_padded, meta, ay, ax, resolution, patch) -> None:
+    """The shapes, types and devices of a per-level pooling call (no value
+    is read)."""
     if not 1 <= len(fmaps_padded) <= MAX_LEVELS:
         raise ValueError(f"1 to {MAX_LEVELS} level buffers, got "
                          f"{len(fmaps_padded)}")
     _check_common(list(fmaps_padded), {"meta": (meta, (3,))}, ay, ax,
                   resolution, patch)
-    if meta.shape[0]:
-        if bool(((meta[:, 0] < 0) | (meta[:, 0] >= len(fmaps_padded))).any()):
-            raise ValueError(f"meta[:, 0] must be a level in "
-                             f"[0, {len(fmaps_padded)})")
-        if bool((meta[:, 2] % 8 != 0).any()):
-            raise ValueError("meta[:, 2] must be multiples of 8")
 
 
 def _level_arrays(fmaps_padded):
@@ -240,6 +252,8 @@ def roi_pool_patches(fmaps_padded: Sequence[torch.Tensor], meta: torch.Tensor,
     ``meta[i, 2]``."""
     global launches_patches
     _check_levels(fmaps_padded, meta, ay, ax, resolution, patch)
+    if meta.shape[0]:
+        _raise_on_fault(_level_faults(len(fmaps_padded), meta))
     first = fmaps_padded[0]
     if first.device.type == "cpu":
         return roi_pool_patches_reference(fmaps_padded, meta, ay, ax,
@@ -345,13 +359,15 @@ def _check_resident(fmaps_padded, meta, ay, ax, resolution, patch, chunk,
                              f"{n_images} image sections")
     if n:
         _, sec_hs, sec_ws = resident_geometry(fmaps_padded, n_images, patch)
-        lvl = meta[:, 0].long()
+        lvl = meta[:, 0].long().clamp(0, len(fmaps_padded) - 1)
         max_r = torch.tensor(sec_hs, device=meta.device)[lvl] - patch
         max_c = torch.tensor(sec_ws, device=meta.device)[lvl] - (patch + 8)
-        if bool(((meta[:, 1] < 0) | (meta[:, 1] > max_r) | (meta[:, 2] < 0)
-                 | (meta[:, 2] > max_c)).any()):
-            raise ValueError("window origins must be image-relative and "
-                             "clamped into the unpadded sections")
+        _raise_on_fault({
+            **_level_faults(len(fmaps_padded), meta),
+            "window origins must be image-relative and clamped into the "
+            "unpadded sections":
+            (meta[:, 1] < 0) | (meta[:, 1] > max_r) | (meta[:, 2] < 0)
+            | (meta[:, 2] > max_c)})
 
 
 def roi_pool_resident(fmaps_padded: Sequence[torch.Tensor], meta: torch.Tensor,

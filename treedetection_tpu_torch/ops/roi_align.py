@@ -72,12 +72,14 @@ LARGE_FRAC_MASK = 0.25
 EXACT_FRAC_BOX = 0.05
 EXACT_FRAC_MASK = 0.08
 
-# Boxes one block of the resident pooler (K6) serves, box pool and mask pool.
-# The chunk only sets how many blocks are in flight: 32 and 8 give about a
-# thousand blocks at 10 images x 512 proposals / 100 detections x 8 channel
-# slices.  Each image's boxes are padded to a multiple of it.
-RESIDENT_CHUNK_BOX = 32
-RESIDENT_CHUNK_MASK = 8
+# Boxes one block of the resident pooler (K6) serves, box pool and mask pool;
+# each image's boxes are padded to a multiple of it.  Measured on an H100 at
+# the example geometry in bf16 (``chip_smoke.py``, kernel phase, chunks 1 to
+# 32): the time rises with the chunk from 4 on (a block's boxes run one
+# after the other, with no other box's loads in flight), and 2 and 1 were
+# the fastest for the box and the mask pool.
+RESIDENT_CHUNK_BOX = 2
+RESIDENT_CHUNK_MASK = 1
 
 _logger = logging.getLogger(LOGGER_NAME)
 
