@@ -1,4 +1,5 @@
-"""The port's tensor ops against the JAX package's, on the CPU in float32.
+"""The port's tensor ops against the JAX package's, on the CPU in float32
+(the poolers also in bfloat16).
 
 Inputs are made with numpy from a seed and fed to both packages.  The K1
 pooler's plain version is held against the Pallas kernel run in interpret
@@ -17,10 +18,10 @@ from treedetection_tpu_torch.ops import boxes as tboxes  # noqa: E402
 from treedetection_tpu_torch.ops.image import (  # noqa: E402
     normalize_bgr, resize_bilinear)
 from treedetection_tpu_torch.ops.kernels.roi_align import (  # noqa: E402
-    roi_pool_patches_flat, roi_pool_patches_flat_reference)
+    hat_spans, roi_pool_patches_flat, roi_pool_patches_flat_reference)
 from treedetection_tpu_torch.ops.nms import nms_mask, stable_topk  # noqa: E402
 from treedetection_tpu_torch.ops.roi_align import (  # noqa: E402
-    multilevel_roi_align_batched)
+    flat_pool_inputs, multilevel_roi_align_batched)
 
 
 def _boxes(rng, n, img=256.0):
@@ -121,32 +122,96 @@ def test_normalize_and_resize_match_jax(src, dst):
         np.asarray(jresize(jnp.asarray(one), dst, dst)), atol=1e-4)
 
 
-@pytest.mark.parametrize("resolution", [7, 14])
-def test_k1_plain_matches_pallas_interpret(resolution):
+def _crown_flat_inputs(resolution, seed, c=16):
+    """K1's inputs in bfloat16 from real boxes: the level-concatenated
+    buffer and bilinear hats with narrow spans, as the pooler builds them."""
+    rng = np.random.default_rng(seed)
+    fmaps = [torch.from_numpy(rng.standard_normal(
+        (2, 64 >> i, 64 >> i, c)).astype(np.float32)).to(torch.bfloat16)
+        for i in range(4)]
+    ctr = rng.uniform(0, 256, (2, 12, 2))
+    wh = rng.uniform(8, 120, (2, 12, 2))
+    boxes = np.clip(np.concatenate([ctr - wh / 2, ctr + wh / 2], -1), 0, 256)
+    p = flat_pool_inputs(fmaps, torch.from_numpy(boxes.astype(np.float32)),
+                         resolution, (4, 8, 16, 32))
+    return [p.kcat, p.rows, p.cols, p.ay, p.ax]
+
+
+# ids keep the float32 cases' names of before the bfloat16 cases
+@pytest.mark.parametrize("resolution,dtype", [
+    (7, "float32"), (14, "float32"), (7, "bfloat16"), (14, "bfloat16")],
+    ids=["7", "14", "bf16-7", "bf16-14"])
+def test_k1_plain_matches_pallas_interpret(resolution, dtype):
     """K1's plain version == the Pallas ``roi_pool_patches_flat`` in
-    interpret mode on identical inputs (float32, atol 2e-5 as the JAX
-    package's own interpret-mode tests use)."""
+    interpret mode on identical inputs.  float32, dense random hats: atol
+    2e-5, as the JAX package's own interpret-mode tests use.  bfloat16, the
+    pooler's own inputs (real boxes, narrow hat spans): EQUAL, because both
+    round the hats and ``A_y . window`` to bf16 and accumulate in float32;
+    before the port rounded as the TPU kernel does, 60% of these outputs
+    differed."""
     from treedetection_tpu.ops.pallas.roi_align_kernel import (
         roi_pool_patches_flat as pallas_pool)
-    rng = np.random.default_rng(resolution)
-    n, c, patch = 16, 8, 48
-    fcat = rng.standard_normal((200, 120, c)).astype(np.float32)
-    rows = rng.integers(0, 200 - patch, n).astype(np.int32)
-    cols = (rng.integers(0, (120 - patch - 8) // 8 + 1, n) * 8).astype(np.int32)
-    ay = rng.uniform(0, 0.5, (n, resolution, patch)).astype(np.float32)
-    ax = rng.uniform(0, 0.5, (n, resolution, patch + 8)).astype(np.float32)
-    want = np.asarray(pallas_pool(
-        jnp.asarray(fcat), jnp.asarray(rows), jnp.asarray(cols),
-        jnp.asarray(ay), jnp.asarray(ax), resolution, patch, n,
-        interpret=True))
-    args = [torch.from_numpy(a) for a in (fcat, rows, cols, ay, ax)]
+    patch = 48
+    if dtype == "float32":
+        rng = np.random.default_rng(resolution)
+        n, c = 16, 8
+        fcat = rng.standard_normal((200, 120, c)).astype(np.float32)
+        rows = rng.integers(0, 200 - patch, n).astype(np.int32)
+        cols = (rng.integers(0, (120 - patch - 8) // 8 + 1, n) * 8).astype(
+            np.int32)
+        ay = rng.uniform(0, 0.5, (n, resolution, patch)).astype(np.float32)
+        ax = rng.uniform(0, 0.5, (n, resolution, patch + 8)).astype(
+            np.float32)
+        args = [torch.from_numpy(a) for a in (fcat, rows, cols, ay, ax)]
+    else:
+        args = _crown_flat_inputs(resolution, 40 + resolution)
+    n = args[1].shape[0]
+    jargs = [jnp.asarray(a.float().numpy()).astype(jnp.bfloat16)
+             if a.dtype == torch.bfloat16 else jnp.asarray(a.numpy())
+             for a in args]
+    want = np.asarray(pallas_pool(*jargs, resolution, patch, n,
+                                  interpret=True).astype(jnp.float32))
     got = roi_pool_patches_flat_reference(*args, resolution, patch, chunk=5)
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
+    assert got.dtype == args[0].dtype
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
+    else:
+        np.testing.assert_array_equal(got.float().numpy(), want)
+        assert np.abs(want).max() > 0.5
     # the wrapper takes the plain version for CPU tensors, without a launch
     from treedetection_tpu_torch.ops.kernels import roi_align as k1
     before = k1.launches
     assert torch.equal(roi_pool_patches_flat(*args, resolution, patch), got)
     assert k1.launches == before
+
+
+def test_hat_spans_match_numpy():
+    """``hat_spans`` == the first and last nonzero row of ``ay`` and column
+    of ``ax`` found with numpy, on the pooler's hats and on crafted ones: a
+    full span, a one-row span, spans at row 47 and column 55, and boxes
+    with all-zero hats (the empty span [0, -1, 0, -1])."""
+    _, _, _, ay, ax = _crown_flat_inputs(7, 3)
+    ay, ax = ay.clone(), ax.clone()
+    ay[0], ax[0] = 0.5, 0.5
+    ay[1] = 0
+    ay[1, 3, 20] = 0.25
+    ay[2], ax[2] = 0, 0
+    ay[2, :, 47], ax[2, 6, 55] = 0.5, 1.0
+    ay[3] = 0
+    ax[4] = 0
+    got = hat_spans(ay, ax).numpy()
+    for i, (a, b) in enumerate(zip(ay.numpy(), ax.numpy())):
+        ys, xs = np.nonzero(a.any(axis=0))[0], np.nonzero(b.any(axis=0))[0]
+        want = ([ys[0], ys[-1], xs[0], xs[-1]] if len(ys) and len(xs)
+                else [0, -1, 0, -1])
+        assert got[i].tolist() == want, i
+    assert got[:5].tolist() == [[0, 47, 0, 55], got[1].tolist(),
+                                [47, 47, 55, 55], [0, -1, 0, -1],
+                                [0, -1, 0, -1]]
+    assert got[1, :2].tolist() == [20, 20]
+    spans = got[5:]
+    assert (spans[:, 1] - spans[:, 0]).max() < 30   # narrow, as real crowns
+    assert hat_spans(ay[:0], ax[:0]).shape == (0, 4)
 
 
 def test_k1_wrapper_rejects_bad_inputs():

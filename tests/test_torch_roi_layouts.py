@@ -5,9 +5,11 @@ The JAX side runs its Pallas kernels in interpret mode (``interpret=True`` /
 ``force_interpret=True``), as its own tests in ``tests/test_ops.py`` do; the
 port's wrappers take their plain versions because the tensors lie on the
 CPU.  Inputs are made with numpy from a seed: levels 64^2..8^2, C=16, B=2,
-N=24 (the JAX tests' sizes).  Tolerance: atol 2e-5 throughout, the JAX
-tests' own (two float32 contractions summed in different orders); inexact
-masks and overflow counts must be EQUAL.
+N=24 (the JAX tests' sizes).  Tolerance: atol 2e-5 in float32, the JAX
+tests' own (two float32 contractions summed in different orders); in
+bfloat16 the outputs must be EQUAL (both packages round the hats and
+``A_y . window`` to bf16 and accumulate in float32); inexact masks and
+overflow counts must be EQUAL.
 """
 
 import numpy as np
@@ -37,6 +39,21 @@ def _fmaps(seed, batch=2, base=64, c=16):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal((batch, base >> i, base >> i, c)).astype(
         np.float32) for i in range(4)]
+
+
+# (resolution, feature dtype) of the kernel-level cases; the ids keep the
+# float32 cases' names of before the bfloat16 cases
+KERNEL_CASES = dict(argnames="resolution,dtype", argvalues=[
+    (7, torch.float32), (14, torch.float32), (7, torch.bfloat16),
+    (14, torch.bfloat16)], ids=["7", "14", "bf16-7", "bf16-14"])
+
+
+def _assert_matches(got, want):
+    """float32: atol 2e-5; bfloat16: equal."""
+    if got.dtype == torch.bfloat16:
+        np.testing.assert_array_equal(got.float().numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
 
 
 def _mixed_boxes(strips=True, n_small=18):
@@ -90,28 +107,33 @@ def _torch(arrays):
 
 
 def _jnp(tensors):
-    return tuple(jnp.asarray(t.numpy()) for t in tensors)
+    """Tensors -> JAX arrays of the same dtype (bfloat16 through float32,
+    which both round alike)."""
+    return tuple(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                 if t.dtype == torch.bfloat16 else jnp.asarray(t.numpy())
+                 for t in tensors)
 
 
 # --- kernel level ---------------------------------------------------------------
 
-@pytest.mark.parametrize("resolution", [7, 14])
-def test_k5_plain_matches_pallas_interpret(resolution):
+@pytest.mark.parametrize(**KERNEL_CASES)
+def test_k5_plain_matches_pallas_interpret(resolution, dtype):
     """K5's plain version == the Pallas ``roi_pool_patches`` in interpret
-    mode on the same buffers, ``meta`` and hats; the wrapper takes the plain
-    version for CPU tensors without a launch."""
+    mode on the same buffers, ``meta`` and hats (the pooler's own: real
+    boxes, bilinear hats), in float32 and in bfloat16; the wrapper takes the
+    plain version for CPU tensors without a launch."""
     from treedetection_tpu.ops.pallas import roi_align_kernel as rk
-    p = port.level_pool_inputs(_torch(_fmaps(50 + resolution)),
-                               torch.from_numpy(_edge_boxes()), resolution,
-                               STRIDES)
+    fmaps = [f.to(dtype) for f in _torch(_fmaps(50 + resolution))]
+    p = port.level_pool_inputs(fmaps, torch.from_numpy(_edge_boxes()),
+                               resolution, STRIDES)
     n = p.meta.shape[0]
-    want = np.asarray(rk.roi_pool_patches(
-        _jnp(p.kpadded), jnp.asarray(p.meta.numpy()),
-        jnp.asarray(p.ay.numpy()), jnp.asarray(p.ax.numpy()), resolution, 48,
-        n, interpret=True))
+    want = np.asarray(_jitted(
+        lambda f, m, a, b: rk.roi_pool_patches(f, m, a, b, resolution, 48, n,
+                                               interpret=True),
+        _jnp(p.kpadded), *_jnp((p.meta, p.ay, p.ax))).astype(jnp.float32))
     got = kernels.roi_pool_patches_reference(p.kpadded, p.meta, p.ay, p.ax,
                                              resolution)
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+    _assert_matches(got, want)
     assert np.abs(want).max() > 0.1
     before = kernels.launches_patches
     assert torch.equal(kernels.roi_pool_patches(p.kpadded, p.meta, p.ay, p.ax,
@@ -120,29 +142,29 @@ def test_k5_plain_matches_pallas_interpret(resolution):
 
 
 @pytest.mark.parametrize("c_split", [1, 2])
-@pytest.mark.parametrize("resolution", [7, 14])
-def test_k6_plain_matches_pallas_interpret(resolution, c_split):
+@pytest.mark.parametrize(**KERNEL_CASES)
+def test_k6_plain_matches_pallas_interpret(resolution, dtype, c_split):
     """K6's plain version == the Pallas ``roi_pool_resident`` in interpret
     mode at whole C and at two C-blocks, on the port's resident inputs:
     clamped image-relative origins, refolded hats, each image's 26 boxes
-    padded to 30 (chunk 5)."""
+    padded to 30 (chunk 5); in float32 and in bfloat16."""
     from treedetection_tpu.ops.pallas import roi_align_kernel as rk
-    p = port.level_pool_inputs(_torch(_fmaps(60 + resolution)),
-                               torch.from_numpy(_edge_boxes()), resolution,
-                               STRIDES)
+    fmaps = [f.to(dtype) for f in _torch(_fmaps(60 + resolution))]
+    p = port.level_pool_inputs(fmaps, torch.from_numpy(_edge_boxes()),
+                               resolution, STRIDES)
     r = port.resident_pool_inputs(p, resolution, 2, n_images=2, chunk=5,
                                   c_split=c_split)
     assert r.pad_per == 4 and r.meta.shape[0] == 60
     # the clamp moved some origins: the hats differ from the per-level ones
     assert not torch.equal(r.ay.reshape(2, 30, -1)[:, :26],
                            p.ay.reshape(2, 26, -1))
-    want = np.asarray(rk.roi_pool_resident(
-        _jnp(r.kpadded), jnp.asarray(r.meta.numpy()),
-        jnp.asarray(r.ay.numpy()), jnp.asarray(r.ax.numpy()), resolution, 48,
-        r.chunk, 2, c_split, interpret=True))
+    want = np.asarray(_jitted(
+        lambda f, m, a, b: rk.roi_pool_resident(
+            f, m, a, b, resolution, 48, r.chunk, 2, c_split, interpret=True),
+        _jnp(r.kpadded), *_jnp((r.meta, r.ay, r.ax))).astype(jnp.float32))
     got = kernels.roi_pool_resident_reference(
         r.kpadded, r.meta, r.ay, r.ax, resolution, 48, r.chunk, 2, c_split)
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+    _assert_matches(got, want)
     assert np.abs(want).max() > 0.1
     # padding boxes (zero hats, meta 0) pool to zeros
     assert float(got.reshape(2, 30, -1)[:, 26:].abs().max()) == 0.0
@@ -236,6 +258,8 @@ POOLER_CASES = {
                            "TD_ROI_EXACT_FRAC": "0"}, False, [4, 0]),
     "small_resident_set": ({"TD_ROI_RESIDENT": "1", "TD_ROI_SMALL": "16",
                             "TD_ROI_LARGE_FRAC": "0.5"}, True, [0, 0]),
+    # bfloat16 features; no strip, so the float32 gather tail takes no box
+    "flat_bf16": ({}, False, [0, 0]),
 }
 
 
@@ -254,9 +278,9 @@ def _force_split(monkeypatch, fmaps):
 @pytest.mark.parametrize("case", sorted(POOLER_CASES))
 def test_batched_pooler_layouts_match_jax(monkeypatch, case):
     """``multilevel_roi_align_batched`` under each layout and class setting
-    against the JAX function under the same variables: features within 2e-5,
-    the (B, N) inexact mask equal, the per-image counts as
-    ``tests/test_ops.py`` pins them."""
+    against the JAX function under the same variables: features within 2e-5
+    (equal for the bfloat16 case), the (B, N) inexact mask equal, the
+    per-image counts as ``tests/test_ops.py`` pins them."""
     from treedetection_tpu.ops.roi_align import (
         multilevel_roi_align_batched as jax_pool)
     env, strips, expected = POOLER_CASES[case]
@@ -278,17 +302,20 @@ def test_batched_pooler_layouts_match_jax(monkeypatch, case):
             splits.append(args[-1])
             return real(*args)
         monkeypatch.setattr(port, "roi_pool_resident", spy)
+    tfmaps = _torch(fmaps)
+    if case.endswith("bf16"):
+        tfmaps = [f.to(torch.bfloat16) for f in tfmaps]
     want, want_mask = _jitted(
         lambda f, bx: jax_pool(f, bx, 7, STRIDES, pallas=True,
                                force_interpret=True,
                                return_inexact_mask=True),
-        [jnp.asarray(f) for f in fmaps], jnp.asarray(boxes))
+        list(_jnp(tfmaps)), jnp.asarray(boxes))
     got, got_mask = port.multilevel_roi_align_batched(
-        _torch(fmaps), torch.from_numpy(boxes), 7, STRIDES)
+        tfmaps, torch.from_numpy(boxes), 7, STRIDES)
     np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
     assert got_mask.sum(dim=1).tolist() == expected
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
-                               atol=ATOL)
+    assert got.dtype == tfmaps[0].dtype
+    _assert_matches(got, np.asarray(want.astype(jnp.float32)))
     if case.startswith("resident"):
         assert splits == [2 if case == "resident_split" else 1]
 

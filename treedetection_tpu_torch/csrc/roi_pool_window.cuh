@@ -1,5 +1,6 @@
-// One box's pooling, shared by the three ROIAlign patch poolers
-// (roi_pool_flat.cu, roi_pool_levels.cu, roi_pool_resident.cu):
+// One box's pooling, shared by the ROIAlign patch poolers roi_pool_levels.cu
+// and roi_pool_resident.cu, and by roi_pool_flat.cu for float32 features
+// (its bfloat16 kernel is its own):
 //
 //     out = A_y . window . A_x^T,   window = src[row0 : row0+P, col0 : col0+P+8, c]
 //
@@ -8,12 +9,16 @@
 // and its rounding are the same in all of them:
 //   stage  : the box's hat matrices A_y (R, P) and A_x (R, P+8) into shared
 //            memory;
-//   phase 1: t[r][x][c] = sum_y A_y[r][y] * window[y][x][c]   (fp32, in smem)
+//   phase 1: t[r][x][c] = sum_y A_y[r][y] * window[y][x][c]   (in smem)
 //   phase 2: out[r][j][c] = sum_x A_x[j][x] * t[r][x][c]
 // Consecutive threads own consecutive channels, so window reads and output
 // writes are coalesced along C.  Cells outside [0, rows) x [0, cols) of the
-// source read as zeros.  Hat matrices and the intermediate t stay fp32; only
-// the output is rounded to the feature dtype.
+// source read as zeros.  Rounding follows the TPU kernels
+// (treedetection_tpu/ops/pallas/roi_align_kernel.py): the hats are rounded to
+// the feature dtype when they are staged, t is accumulated in fp32 and rounded
+// to the feature dtype when it is stored, and the output is accumulated in
+// fp32 and rounded once.  For float32 features every rounding is the
+// identity.
 
 #pragma once
 
@@ -33,6 +38,13 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+// v rounded to T and widened back: the identity for float.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) { return v; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
@@ -61,8 +73,10 @@ __device__ __forceinline__ void pool_box(
   float* s_ax = s_ay + R * patch;       // (R, cpatch)
   float* s_t = s_ax + R * cpatch;       // (R, cpatch, kCSlice)
 
-  for (int i = threadIdx.x; i < R * patch; i += blockDim.x) s_ay[i] = ay_box[i];
-  for (int i = threadIdx.x; i < R * cpatch; i += blockDim.x) s_ax[i] = ax_box[i];
+  for (int i = threadIdx.x; i < R * patch; i += blockDim.x)
+    s_ay[i] = round_to<T>(ay_box[i]);
+  for (int i = threadIdx.x; i < R * cpatch; i += blockDim.x)
+    s_ax[i] = round_to<T>(ax_box[i]);
   __syncthreads();
 
   // phase 1: contract the window rows with A_y
@@ -85,7 +99,8 @@ __device__ __forceinline__ void pool_box(
       }
     }
 #pragma unroll
-    for (int r = 0; r < R; ++r) s_t[(r * cpatch + x) * kCSlice + cl] = acc[r];
+    for (int r = 0; r < R; ++r)
+      s_t[(r * cpatch + x) * kCSlice + cl] = round_to<T>(acc[r]);
   }
   __syncthreads();
 

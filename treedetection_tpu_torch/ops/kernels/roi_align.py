@@ -33,10 +33,13 @@ on the CPU takes the plain PyTorch version beside it
 (``*_reference``), which the tests and ``chip_smoke.py`` hold the kernel
 against.
 
-Rounding: the kernels and the plain versions keep the hat matrices and the
-intermediate ``A_y . window`` in float32 and round only the output to the
-feature dtype.  (The TPU kernels also round the hats and the intermediate
-to bf16 in production.)
+Rounding, as in the TPU kernels (``roi_align_kernel.py:129-138``, ``:231-238``,
+``:377-388``): the hats are rounded to the feature dtype; ``t = A_y . window``
+is accumulated in float32 and rounded to the feature dtype; the output
+``t . A_x^T`` is accumulated in float32 and rounded once.  For float32
+features each rounding is the identity.  The kernels and the plain versions
+round at the same three points (:func:`contract_window`), so they differ
+only where another summation order flips a rounding.
 """
 
 from __future__ import annotations
@@ -153,13 +156,38 @@ def _check_cuda(t: torch.Tensor, resolution: int) -> None:
                          f"got {resolution}")
 
 
+def hat_spans(ay: torch.Tensor, ax: torch.Tensor) -> torch.Tensor:
+    """(N, 4) int64 ``[y_lo, y_hi, x_lo, x_hi]``: the window rows where any
+    row of ``ay[i]`` is nonzero and the columns where any row of ``ax[i]``
+    is, inclusive.  Only these cells of a box's window carry weight.  A box
+    with an all-zero ``ay[i]`` or ``ax[i]`` pools to zero and gets the empty
+    span ``[0, -1, 0, -1]``."""
+    def span(nz):                                 # (N, L) bool
+        idx = torch.arange(nz.shape[1], device=nz.device)
+        lo = torch.where(nz, idx, nz.shape[1]).amin(dim=1)
+        hi = torch.where(nz, idx, -1).amax(dim=1)
+        return lo, hi
+
+    y_lo, y_hi = span((ay != 0).any(dim=1))
+    x_lo, x_hi = span((ax != 0).any(dim=1))
+    spans = torch.stack([y_lo, y_hi, x_lo, x_hi], dim=1)
+    empty = ((y_hi < 0) | (x_hi < 0))[:, None]
+    return torch.where(empty, torch.tensor([0, -1, 0, -1], device=ay.device),
+                       spans)
+
+
 # --- K1: one flat buffer -------------------------------------------------------
 
 def roi_pool_patches_flat(fcat: torch.Tensor, rows: torch.Tensor,
                           cols: torch.Tensor, ay: torch.Tensor,
                           ax: torch.Tensor, resolution: int,
                           patch: int = 48) -> torch.Tensor:
-    """Pool N boxes -> (N, R, R, C) from one level-concatenated buffer."""
+    """Pool N boxes -> (N, R, R, C) from one level-concatenated buffer.
+
+    On the card, float32 features take the kernel shared with K5 and K6 and
+    bfloat16 features the tensor-core kernel, which needs C a multiple of 8,
+    ``patch`` at most 48 and a 16-byte aligned ``fcat``; other bfloat16
+    inputs raise."""
     global launches
     _check_common([fcat], {"rows": (rows, ()), "cols": (cols, ())}, ay, ax,
                   resolution, patch)
@@ -170,8 +198,16 @@ def roi_pool_patches_flat(fcat: torch.Tensor, rows: torch.Tensor,
         return roi_pool_patches_flat_reference(fcat, rows, cols, ay, ax,
                                                resolution, patch)
     _check_cuda(fcat, resolution)
+    if fcat.dtype == torch.bfloat16:
+        if c % 8 or not 1 <= patch <= 48 or fcat.data_ptr() % 16:
+            raise ValueError(
+                f"the bfloat16 kernel needs C a multiple of 8, a patch of 1 "
+                f"to 48 rows and a 16-byte aligned buffer; got C={c}, "
+                f"patch={patch}, address {fcat.data_ptr():#x}")
     out = torch.empty((n, resolution, resolution, c), dtype=fcat.dtype,
                       device=fcat.device)
+    if n == 0:
+        return out
     fn = _get_fn("roi_pool_flat")
     with torch.cuda.device(fcat.device):
         stream = torch.cuda.current_stream(fcat.device).cuda_stream
@@ -185,13 +221,25 @@ def roi_pool_patches_flat(fcat: torch.Tensor, rows: torch.Tensor,
     return out
 
 
+def contract_window(ay: torch.Tensor, ax: torch.Tensor, win: torch.Tensor,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """``ay`` (k, R, P), ``ax`` (k, R, X) float32 hats and ``win`` (k, P, X, C)
+    windows -> (k, R, R, C) in ``dtype``, rounded where the TPU kernels round:
+    the hats and ``t`` to ``dtype``, both contractions in float32."""
+    a_y = ay.to(dtype).float()
+    a_x = ax.to(dtype).float()
+    t = torch.einsum("kiy,kyxc->kixc", a_y, win.float()).to(dtype).float()
+    return torch.einsum("kjx,kixc->kijc", a_x, t).to(dtype)
+
+
 def roi_pool_patches_flat_reference(fcat: torch.Tensor, rows: torch.Tensor,
                                     cols: torch.Tensor, ay: torch.Tensor,
                                     ax: torch.Tensor, resolution: int,
                                     patch: int = 48,
                                     chunk: int = 64) -> torch.Tensor:
-    """Plain PyTorch version: gather each box's window, then two einsums in
-    float32, chunked over boxes (all windows at once would not fit)."""
+    """Plain PyTorch version: gather each box's window, then the two
+    contractions of :func:`contract_window`, chunked over boxes (all windows
+    at once would not fit)."""
     n, c = rows.shape[0], fcat.shape[-1]
     out = torch.empty((n, resolution, resolution, c), dtype=fcat.dtype,
                       device=fcat.device)
@@ -201,10 +249,8 @@ def roi_pool_patches_flat_reference(fcat: torch.Tensor, rows: torch.Tensor,
         e = min(s + chunk, n)
         ry = rows[s:e].long()[:, None] + ar_y                 # (k, patch)
         cx = cols[s:e].long()[:, None] + ar_x                 # (k, patch+8)
-        win = fcat[ry[:, :, None], cx[:, None, :]].float()    # (k, P, P+8, C)
-        t = torch.einsum("kiy,kyxc->kixc", ay[s:e].float(), win)
-        out[s:e] = torch.einsum("kjx,kixc->kijc", ax[s:e].float(),
-                                t).to(fcat.dtype)
+        win = fcat[ry[:, :, None], cx[:, None, :]]            # (k, P, P+8, C)
+        out[s:e] = contract_window(ay[s:e], ax[s:e], win, fcat.dtype)
     return out
 
 
@@ -279,8 +325,8 @@ def _pool_windows(fmaps_padded, level, rows, cols, ay, ax, out, patch,
                   channels=slice(None), chunk: int = 64) -> None:
     """Plain pooling shared by K5's and K6's plain versions: for every box
     gather the (patch, patch+8) window at (rows[i], cols[i]) of its level's
-    buffer, restricted to ``channels``, contract it with the hats in float32
-    and write ``out[i, :, :, channels]``."""
+    buffer, restricted to ``channels``, contract it with the hats
+    (:func:`contract_window`) and write ``out[i, :, :, channels]``."""
     dev = out.device
     ar_y = torch.arange(patch, device=dev)
     ar_x = torch.arange(patch + 8, device=dev)
@@ -290,10 +336,9 @@ def _pool_windows(fmaps_padded, level, rows, cols, ay, ax, out, patch,
             sel = idx[s:s + chunk]
             ry = rows[sel][:, None] + ar_y                     # (k, patch)
             cx = cols[sel][:, None] + ar_x                     # (k, patch+8)
-            win = f[ry[:, :, None], cx[:, None, :]][..., channels].float()
-            t = torch.einsum("kiy,kyxc->kixc", ay[sel].float(), win)
-            out[sel, :, :, channels] = torch.einsum(
-                "kjx,kixc->kijc", ax[sel].float(), t).to(out.dtype)
+            win = f[ry[:, :, None], cx[:, None, :]][..., channels]
+            out[sel, :, :, channels] = contract_window(ay[sel], ax[sel], win,
+                                                       out.dtype)
 
 
 def roi_pool_patches_reference(fmaps_padded: Sequence[torch.Tensor],
@@ -301,7 +346,7 @@ def roi_pool_patches_reference(fmaps_padded: Sequence[torch.Tensor],
                                ax: torch.Tensor, resolution: int,
                                patch: int = 48) -> torch.Tensor:
     """Plain PyTorch version of K5: level by level, gather each box's
-    window, then two einsums in float32."""
+    window, then the two contractions of :func:`contract_window`."""
     first = fmaps_padded[0]
     out = torch.zeros((meta.shape[0], resolution, resolution,
                        first.shape[-1]), dtype=first.dtype,
