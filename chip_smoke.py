@@ -10,14 +10,16 @@ build,kernel,predictor,model,pipeline,pipeline_two_model:
 1. build     — compile the port's native libraries from the sources in the
                checkout (one nvcc per CUDA kernel source, g++ for the host
                helpers), all compilers started together; prints each
-               kernel's ``ptxas`` lines.
+               kernel's ``ptxas`` lines (registers, spills and shared memory
+               of K1's and K5's bf16 kernels, which must not spill).
 2. kernel    — K1, K5 and K6 (the flat, per-level and image-resident
                ROIAlign patch poolers; K6 at c_split 1 and 2) against their
                plain PyTorch versions and against each other on the same
-               boxes at production shapes (box pool N=5120 R=7, mask pool
-               N=1000 R=14, 1024^2 input at batch 10, C=256), in float32
-               with TF32 off and in bfloat16 (K6 in bfloat16 also timed at
-               1 to 32 boxes per block); K2/K3/K4 (the pairwise dedupe,
+               boxes (K5 bit-equal to K1 in both dtypes) at production
+               shapes (box pool N=5120 R=7, mask pool N=1000 R=14, 1024^2
+               input at batch 10, C=256), in float32 with TF32 off and in
+               bfloat16 (K6 in bfloat16 also timed at 1 to 32 boxes per
+               block; K1 and K5 in turns); K2/K3/K4 (the pairwise dedupe,
                containment and IoU masks) against their plain versions
                with EXACT equality at one production row block (8192 rows x
                32768 columns), at ragged and square shapes, and on
@@ -26,7 +28,9 @@ build,kernel,predictor,model,pipeline,pipeline_two_model:
 3. predictor — the port's Predictor (R50-FPN, 1024^2, batch 10, 512
                proposals, bf16) on a synthetic 1000x1000 px RGBI GeoTIFF
                tiled into 16 tiles: a first pass, then a timed pass with the
-               kernel launch counts reset just before it and read just after.
+               kernel launch counts reset just before it and read just after;
+               then a pass under ``TD_ROI_FLAT=0`` (K5 in place of K1) that
+               must write the timed pass's tile files byte for byte.
 4. model     — one batch's real proposals and detections pooled through K1
                and the plain version, and the float32 forward's kept sets with
                each pooler (passed explicitly) and under each of the three
@@ -178,22 +182,37 @@ def phase_build(state):
         log = results[name][0].with_suffix(".log")
         ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
                        if "registers" in ln or "spill" in ln or "smem" in ln]
-    k1_bf16 = ptxas_report(
-        results["roi_pool_flat"][0].with_suffix(".log").read_text(),
-        "roi_pool_flat_bf16_kernel")
+    # the bf16 kernels of K1 and K5, both pool_box_bf16: registers, spills,
+    # static shared memory (ptxas) and the dynamic shared memory a block
+    # asks for (from the built library)
+    import ctypes
+    levels = ctypes.CDLL(str(results["roi_pool_levels"][0]))
+    dynamic = {f"R{r}": levels.td_roi_pool_bf16_smem_bytes(r) for r in (7, 14)}
+    bf16_ptxas = {}
+    for key, lib, kernel in (
+            ("k1", "roi_pool_flat", "roi_pool_flat_bf16_kernel"),
+            ("k5", "roi_pool_levels", "roi_pool_levels_bf16_kernel")):
+        report = ptxas_report(
+            results[lib][0].with_suffix(".log").read_text(), kernel)
+        for res, row in report.items():
+            row["dynamic_smem_bytes"] = dynamic.get(res)
+        bf16_ptxas[key] = report
     emit({"phase": "build", "seconds": round(time.time() - t0, 3),
           "each_s": {k: round(v[1], 3) for k, v in results.items()},
-          "ptxas": ptxas, "k1_bf16_kernel": k1_bf16})
-    state["k1_bf16_ptxas"] = k1_bf16
-    if sorted(k1_bf16) != ["R14", "R7"] or any(
-            v["spill_stores"] or v["spill_loads"] for v in k1_bf16.values()):
-        fail(f"build: K1's bf16 kernel: {k1_bf16} (expected R=7 and R=14, "
-             f"no spills)")
+          "ptxas": ptxas, "bf16_kernels": bf16_ptxas})
+    state["bf16_ptxas"] = bf16_ptxas
+    for key, report in bf16_ptxas.items():
+        if sorted(report) != ["R14", "R7"] or any(
+                v["spill_stores"] or v["spill_loads"]
+                or not v["dynamic_smem_bytes"] for v in report.values()):
+            fail(f"build: {key.upper()}'s bf16 kernel: {report} (expected "
+                 f"R=7 and R=14, no spills)")
 
 
 def ptxas_report(log: str, kernel: str):
     """``-Xptxas -v`` lines of one kernel template -> {"R7": {registers,
-    spill_stores, spill_loads}, ...} by its resolution (``ILi7E``)."""
+    spill_stores, spill_loads, static_smem_bytes}, ...} by its resolution
+    (``ILi7E``)."""
     import re
     out, current = {}, None
     for line in log.splitlines():
@@ -204,7 +223,7 @@ def ptxas_report(log: str, kernel: str):
             current = f"R{r.group(1)}" if kernel in name and r else None
             if current:
                 out[current] = {"registers": None, "spill_stores": None,
-                                "spill_loads": None}
+                                "spill_loads": None, "static_smem_bytes": 0}
             continue
         if current is None:
             continue
@@ -216,6 +235,9 @@ def ptxas_report(log: str, kernel: str):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[current]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[current]["static_smem_bytes"] = int(m.group(1))
     return out
 
 
@@ -235,6 +257,25 @@ def _timed_ms(fn, warmup=3, iters=20):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _device_ms(fn, kernel: str, iters=20):
+    """Device time per call of ``fn`` of the CUDA kernels whose name holds
+    ``kernel``, from torch.profiler over ``iters`` calls after one warm-up:
+    the kernel alone, without the wrapper's host work.  None when the
+    profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0))
+                for e in prof.key_averages() if kernel in e.key)
+    return total / 1e3 / iters if total else None
 
 
 def _synthetic_boxes(rng, b, n, img=1024.0):
@@ -456,21 +497,23 @@ def phase_kernel(state):
                     row["vs_plain"] = ulp_errors(got, ref)
                 if name == "k1":
                     k1_out = got
-                else:   # the same boxes through another layout: float32
-                    # runs pool_box in all three (bit-equal); bfloat16 K1 is
-                    # the tensor-core kernel (the stated tolerance)
+                else:   # the same boxes through another layout: K1, K5
+                    # and K6 share pool_box in float32, K1 and K5
+                    # pool_box_bf16 in bfloat16 (bit-equal); bfloat16 K6 on
+                    # pool_box is held to the stated tolerance
                     mine = _cut_padding(got, res[int(name[-1])]) \
                         if name.startswith("k6") else got
                     ok, err_k1, _ = check_close(mine, k1_out, dname)
-                    if dtype == torch.float32:
+                    exact = dtype == torch.float32 or name == "k5"
+                    if exact:
                         ok = err_k1 == 0.0
                     row["max_abs_err_vs_k1"] = err_k1
                     if dtype == torch.bfloat16:
                         row["vs_k1"] = ulp_errors(mine, k1_out)
                     if not ok:
                         fail(f"kernel {name} {pool} {dname}: differs from K1 "
-                             f"on the same boxes by {err_k1} (float32: 0.0; "
-                             f"bfloat16: {tol})")
+                             f"on the same boxes by {err_k1} (expected "
+                             f"{0.0 if exact else tol})")
                 del got, ref
                 row["ms"] = _timed_ms(lambda: fn(*args))
                 row["plain_ms"] = _timed_ms(lambda: plain(*args), 1, 3)
@@ -502,23 +545,33 @@ def phase_kernel(state):
                       "k1_ms": summary["k1"][(pool, dname)]["ms"],
                       "k5_ms": summary["k5"][(pool, dname)]["ms"]})
                 summary.setdefault("k6_by_chunk", {})[pool] = by_chunk
-                # K1's tensor-core kernel beside K5's block plan (pool_box),
-                # timed in turns on the same boxes
-                k5_args = calls["k5"][2]
-                turns = [_timed_ms(lambda: k.roi_pool_patches_flat(
-                    *calls["k1"][2])), _timed_ms(lambda: k.roi_pool_patches(
-                        *k5_args))]
-                turns += [_timed_ms(lambda: k.roi_pool_patches(*k5_args)),
-                          _timed_ms(lambda: k.roi_pool_patches_flat(
-                              *calls["k1"][2]))]
+                # K1 beside K5, both on pool_box_bf16, timed in turns on the
+                # same boxes: CUDA events around each call (the wrapper's
+                # host work included), then the profiler's device time of
+                # the kernel alone
+                def run_k1():
+                    return k.roi_pool_patches_flat(*calls["k1"][2])
+
+                def run_k5():
+                    return k.roi_pool_patches(*calls["k5"][2])
+
+                turns = [_timed_ms(run_k1), _timed_ms(run_k5),
+                         _timed_ms(run_k5), _timed_ms(run_k1)]
+                dev_ms = [_device_ms(run_k1, "roi_pool_flat_bf16_kernel"),
+                          _device_ms(run_k5, "roi_pool_levels_bf16_kernel"),
+                          _device_ms(run_k5, "roi_pool_levels_bf16_kernel"),
+                          _device_ms(run_k1, "roi_pool_flat_bf16_kernel")]
                 emit({"phase": "kernel", "kernel": "k1_beside_k5",
                       "pool": pool, "dtype": dname,
                       "k1_ms_turns": [turns[0], turns[3]],
                       "k5_ms_turns": [turns[1], turns[2]],
                       "k1_over_k5": (turns[0] + turns[3])
                       / (turns[1] + turns[2]),
+                      "k1_device_ms_turns": [dev_ms[0], dev_ms[3]],
+                      "k5_device_ms_turns": [dev_ms[1], dev_ms[2]],
                       "k1_bound_ms": summary["k1"][(pool, dname)]["bound_ms"],
-                      "k1_ptxas": state.get("k1_bf16_ptxas")})
+                      "k5_bound_ms": summary["k5"][(pool, dname)]["bound_ms"],
+                      "ptxas": state.get("bf16_ptxas")})
             del k1_out, flat, lvl, res, calls
             torch.cuda.empty_cache()
 
@@ -746,6 +799,45 @@ def phase_predictor(state, workdir: Path):
     state["predictor"] = row
     state["tif"], state["meta"], state["pred"] = tif, meta, pred
     state["pred_timed_dir"] = out2
+
+
+def phase_predictor_levels(state, workdir: Path):
+    """The predictor phase's Predictor over the same 16 tiles under
+    ``TD_ROI_FLAT=0``: K5 pools in place of K1.  In bfloat16 both run
+    pool_box_bf16 on the same cells, so the tile files must equal the
+    default pass's byte for byte."""
+    import torch
+    from treedetection_tpu_torch.ops.kernels import roi_align as k
+    pred = state["pred"]
+    out = workdir / "pred_levels"
+    _reset_roi_launches(k)                    # just before the main path
+    with layout_env("levels"):
+        t0 = time.time()
+        n_written = pred(str(state["tif"]), state["meta"], str(out))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    counts = _roi_launches(k)                 # just after
+    batches = math.ceil(n_written / pred.batch_size)
+    flat = {p.name: p.read_bytes()
+            for p in state["pred_timed_dir"].glob("Prediction_*.json")}
+    mine = {p.name: p.read_bytes() for p in out.glob("Prediction_*.json")}
+    differ = sorted(name for name in flat if mine.get(name) != flat[name])
+    row = {"phase": "predictor_levels", "tiles": n_written,
+           "batches": batches, "wall_s": wall, "launches": counts,
+           "tile_files": len(mine), "tile_files_of_the_default_pass":
+           len(flat), "files_that_differ": differ,
+           "crowns": sum(len(json.loads(b)) for b in mine.values()),
+           "tolerance": "byte-for-byte equal tile files (K5 and K1 share "
+                        "pool_box_bf16)"}
+    emit(row)
+    if counts != {"k1": 0, "k5": 2 * batches, "k6": 0}:
+        fail(f"predictor_levels: ROI launches {counts} for {batches} "
+             f"batches under TD_ROI_FLAT=0 (expected K5 twice per batch "
+             f"and no other)")
+    if sorted(mine) != sorted(flat) or differ:
+        fail(f"predictor_levels: the tile files differ from the default "
+             f"pass's: {row}")
+    state["predictor_levels"] = row
 
 
 def phase_profile(state, workdir: Path, out_dir: Path):
@@ -1387,6 +1479,8 @@ def kernels_line(state):
                     "pipeline_two_model": two["launches"]["k1"]}, ""),
         _roi_entry("k5", {"": roi["k5"]}, two["launches"]["k5"],
                    {"pipeline_two_model": two["launches"]["k5"],
+                    "predictor_levels":
+                    state["predictor_levels"]["launches"]["k5"],
                     "pipeline": pipe["launches"]["k5"]},
                    "; on the path under TD_ROI_FLAT=0"),
         _roi_entry("k6", k6_calls, res["launches"]["k6"],
@@ -1394,7 +1488,8 @@ def kernels_line(state):
                     "pipeline": pipe["launches"]["k6"]},
                    f"; on the path under TD_ROI_RESIDENT=1; headline numbers "
                    f"at c_split={picked}, which the launcher picks in bf16")]
-    kernels[0]["ptxas_bf16"] = state.get("k1_bf16_ptxas")
+    for entry, key in zip(kernels, ("k1", "k5")):
+        entry["ptxas_bf16"] = state.get("bf16_ptxas", {}).get(key)
     kernels[-1]["ms_by_chunk_bf16"] = roi["k6_by_chunk"]
     for mode, (number, wrapper, line) in PAIR_KERNELS.items():
         r = state["pairwise"][mode]
@@ -1454,6 +1549,7 @@ def main() -> None:
             phase_kernel_pairwise(state)
         if "predictor" in phases:
             phase_predictor(state, work)
+            phase_predictor_levels(state, work)
             if args.profile is not None:
                 phase_profile(state, work, args.profile)
         if "model" in phases:

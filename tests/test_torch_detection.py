@@ -31,6 +31,7 @@ import pytest
 import torch
 import yaml
 
+from test_torch_jax_native import jax_native  # noqa: F401 (fixture)
 from treedetection_tpu_torch import detection, prediction, stitching
 from treedetection_tpu_torch.config import (Config, get_config,
                                             prepare_config)
@@ -126,7 +127,10 @@ def _run_jax(root: Path, out: str):
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def runs(tmp_path_factory, jax_native):
+    """One port run and one JAX run of ``process_files`` on the same
+    rasters; ``jax_native``: the JAX side traces with its native library
+    (``test_torch_jax_native.py``)."""
     root = tmp_path_factory.mktemp("slice")
     _write_rasters(root)
     os.environ.pop("TD_PAIRS_DEVICE", None)

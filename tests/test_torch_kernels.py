@@ -142,6 +142,99 @@ def test_k1_bf16_spans(cuda, resolution, case, n):
         assert float(ref.float().abs().max()) > 0.1
 
 
+# (rows, width) of the four level buffers of the K5 span cases: widths 56
+# above a multiple of 8, so that a window can end on a buffer's last column
+LEVEL_SHAPES = ((200, 120), (136, 88), (104, 72), (96, 64))
+
+
+def _level_span_inputs(dev, resolution, case, n):
+    """K5's inputs for one of SPAN_CASES: four bf16 level buffers at C = 256
+    with dense random features, boxes on every level (the first four at
+    each level's bottom-right corner: the window ends on the buffer's last
+    row and column), random hats cut to the case's span; and K1's inputs on
+    the same cells: the buffers stacked into one, zero-padded to the widest.
+    """
+    rows_kept, cols_kept, zero = SPAN_CASES[case]
+    rng = np.random.default_rng(resolution * 100 + n + 1)
+    c, patch = 256, 48
+    bufs = [torch.from_numpy(rng.standard_normal((h, w, c)).astype(
+        np.float32)).to(dev, torch.bfloat16) for h, w in LEVEL_SHAPES]
+    max_row = np.array([h - patch for h, _ in LEVEL_SHAPES])
+    max_col = np.array([w - patch - 8 for _, w in LEVEL_SHAPES])
+    level = rng.integers(0, 4, n)
+    level[:4] = np.arange(min(n, 4))
+    row = rng.integers(0, max_row[level] + 1)
+    col = rng.integers(0, max_col[level] // 8 + 1) * 8
+    row[:4], col[:4] = max_row[level[:4]], max_col[level[:4]]
+    meta = np.stack([level, row, col], axis=1).astype(np.int32)
+    ay = np.zeros((n, resolution, patch), dtype=np.float32)
+    ax = np.zeros((n, resolution, patch + 8), dtype=np.float32)
+    ay[:, :, rows_kept] = rng.uniform(0.01, 0.5, ay[:, :, rows_kept].shape)
+    ax[:, :, cols_kept] = rng.uniform(0.01, 0.5, ax[:, :, cols_kept].shape)
+    for i in zero:
+        if i < n:
+            ay[i] = 0.0
+    ay, ax = torch.from_numpy(ay).to(dev), torch.from_numpy(ax).to(dev)
+    wmax = max(w for _, w in LEVEL_SHAPES)
+    fcat = torch.zeros((sum(h for h, _ in LEVEL_SHAPES), wmax, c),
+                       dtype=torch.bfloat16, device=dev)
+    base = np.cumsum([0] + [h for h, _ in LEVEL_SHAPES])[:-1]
+    for b0, f in zip(base, bufs):
+        fcat[b0:b0 + f.shape[0], :f.shape[1]] = f
+    k5 = (tuple(bufs), torch.from_numpy(meta).to(dev), ay, ax, resolution)
+    k1 = (fcat, torch.from_numpy((base[level] + row).astype(np.int32)).to(dev),
+          torch.from_numpy(col.astype(np.int32)).to(dev), ay, ax, resolution)
+    return k5, k1
+
+
+@pytest.mark.parametrize("n", [0, 37])
+@pytest.mark.parametrize("case", sorted(SPAN_CASES))
+@pytest.mark.parametrize("resolution", [7, 14])
+def test_k5_bf16_spans(cuda, resolution, case, n):
+    """K5's bf16 kernel (K1's pool_box_bf16 on the box's level buffer)
+    against its plain version on K1's span cases, boxes on every level and
+    windows on each buffer's last row and column, at C = 256, N = 37 and
+    N = 0 (no launch); and EQUAL to K1 on the same cells."""
+    _, _, zero = SPAN_CASES[case]
+    k5_args, k1_args = _level_span_inputs(cuda, resolution, case, n)
+    before = (k1.launches, k1.launches_patches)
+    got = k1.roi_pool_patches(*k5_args)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.launches_patches) == (before[0],
+                                                  before[1] + (1 if n else 0))
+    assert got.shape == (n, resolution, resolution, 256)
+    ref = k1.roi_pool_patches_reference(*k5_args)
+    _assert_close(got, ref, torch.bfloat16)
+    assert torch.equal(got, k1.roi_pool_patches_flat(*k1_args))
+    dead = [i for i in zero if i < n] if case != "all_zero" else range(n)
+    for i in dead:
+        assert float(got[i].float().abs().max()) == 0.0
+    if n and case != "all_zero":
+        assert float(ref.float().abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("patch", [48, 16])
+@pytest.mark.parametrize("resolution", [7, 14])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_equals_k1_on_the_same_boxes(cuda, resolution, dtype, patch):
+    """The pooler's own inputs for both layouts (``level_pool_inputs`` and
+    ``flat_pool_inputs`` of the same features and boxes, boxes reaching the
+    image's right and bottom edges), at the full patch and at a small patch
+    class: K5 gives K1's bits, in float32 (both pool_box) and in bfloat16
+    (both pool_box_bf16)."""
+    p = _inputs(cuda, dtype, resolution, prep=level_pool_inputs)
+    f = _inputs(cuda, dtype, resolution)
+    assert torch.equal(p.ay, f.ay) and torch.equal(p.ax, f.ax)
+    ay = p.ay[:, :, :patch].contiguous()
+    ax = p.ax[:, :, :patch + 8].contiguous()
+    got = k1.roi_pool_patches(p.kpadded, p.meta, ay, ax, resolution, patch)
+    want = k1.roi_pool_patches_flat(f.kcat, f.rows, f.cols, ay, ax,
+                                    resolution, patch)
+    torch.cuda.synchronize()
+    assert float(want.float().abs().max()) > 0.1
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("resolution", [7, 14])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k5_matches_plain_version(cuda, resolution, dtype):
@@ -198,6 +291,27 @@ def test_k5_k6_raise_instead_of_falling_back(cuda, monkeypatch):
                             p.ax[:, :5].contiguous(), 5)
     with pytest.raises(ValueError, match="clamped"):
         k1.roi_pool_resident(p.kpadded, p.meta, p.ay, p.ax, 7, 48, 4, 2)
+    # bfloat16 inputs that pool_box_bf16 does not take raise: C not a
+    # multiple of 8, a misaligned level buffer, a patch above 48; N = 0
+    # launches nothing
+    before = k1.launches_patches
+    b16 = [f.to(torch.bfloat16) for f in p.kpadded]
+    c12 = [torch.zeros(f.shape[:2] + (12,), dtype=torch.bfloat16,
+                       device=cuda) for f in p.kpadded]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        k1.roi_pool_patches(c12, p.meta, p.ay, p.ax, 7)
+    shifted = torch.zeros(b16[1].numel() + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].view(b16[1].shape)
+    with pytest.raises(ValueError, match="aligned"):
+        k1.roi_pool_patches([b16[0], shifted] + b16[2:], p.meta, p.ay, p.ax,
+                            7)
+    ay56 = torch.zeros((p.meta.shape[0], 7, 56), device=cuda)
+    ax64 = torch.zeros((p.meta.shape[0], 7, 64), device=cuda)
+    with pytest.raises(ValueError, match="patch of 1 to 48"):
+        k1.roi_pool_patches(b16, p.meta, ay56, ax64, 7, 56)
+    out = k1.roi_pool_patches(b16, p.meta[:0], p.ay[:0], p.ax[:0], 7)
+    assert out.shape == (0, 7, 7, 64) and out.dtype == torch.bfloat16
+    assert k1.launches_patches == before
     # a kernel that cannot be built raises; the plain version is not taken
     before = (k1.launches_patches, k1.launches_resident)
     monkeypatch.setattr(k1, "_libs", {})

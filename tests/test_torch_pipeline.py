@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_jax_native import jax_native  # noqa: F401 (fixture)
 from treedetection_tpu_torch.config import select_device
 from treedetection_tpu_torch.geo import GeoTiff
 from treedetection_tpu_torch.preprocessing import tile_single_file
@@ -103,7 +104,8 @@ def _load_predictions(out_dir):
             for p in sorted(Path(out_dir).glob("Prediction_*.json"))}
 
 
-def test_predictors_write_the_same_crowns(tmp_raster, tmp_path, shared_npz):
+def test_predictors_write_the_same_crowns(tmp_raster, tmp_path, shared_npz,
+                                          jax_native):
     """Both Predictors on tmp_raster, same weights: the same tiles, the same
     crowns in the same order, scores within 1e-4 (float32 on both sides),
     and every polygon vertex within one raster pixel (0.2 m): a uint8 mask
@@ -114,7 +116,8 @@ def test_predictors_write_the_same_crowns(tmp_raster, tmp_path, shared_npz):
     buffered edge tile is zero-filled beyond the raster, and anchors over
     that constant region get RPN scores equal up to float rounding; which
     of them survives top-k then depends on summation order, in either
-    package."""
+    package.  ``jax_native``: the JAX side traces with its native library
+    (``test_torch_jax_native.py``)."""
     import jax
     from treedetection_tpu.prediction import Predictor as JaxPredictor
     from treedetection_tpu_torch.prediction import Predictor
@@ -302,8 +305,9 @@ def test_port_never_imports_jax_statically():
     sources = sorted((PORT / "csrc").glob("*.cu*")) + \
         sorted((PORT / "native").glob("*.cpp"))
     assert [p.name for p in sources] == [
-        "pairwise_boxes.cu", "roi_pool_flat.cu", "roi_pool_levels.cu",
-        "roi_pool_resident.cu", "roi_pool_window.cuh", "contour.cpp"]
+        "pairwise_boxes.cu", "roi_pool_bf16.cuh", "roi_pool_flat.cu",
+        "roi_pool_levels.cu", "roi_pool_resident.cu", "roi_pool_window.cuh",
+        "contour.cpp"]
     assert {"compat.py", "cli.py"} <= {f.name for f in files}
 
 

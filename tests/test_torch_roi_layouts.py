@@ -92,6 +92,35 @@ def _edge_boxes(n=26, seed=3):
     return np.clip(boxes, 0, 256).astype(np.float32)
 
 
+def _corner_boxes(img=512.0):
+    """(2, 16) boxes at each image's four corners, 12 to 480 px: windows on
+    all four levels that reach the right and bottom edges of the level's
+    features (into the buffer's padding)."""
+    rows = []
+    for s in (12.0, 120.0, 250.0, 480.0):
+        for x, y in ((0, 0), (img - s, 0), (0, img - s), (img - s, img - s)):
+            rows.append([x, y, x + s, y + s])
+    boxes = np.asarray(rows, dtype=np.float32)
+    return np.stack([boxes, boxes[::-1].copy()])
+
+
+def _all_level_boxes(n=30, seed=4, img=512.0):
+    """(2, n) boxes of 8 to 512 px over a 512 px image, the first of each
+    image large enough for the top level: every level."""
+    rng = np.random.default_rng(seed)
+    ctr = rng.uniform(0, img, (2, n, 2))
+    side = np.exp(rng.uniform(np.log(8), np.log(img), (2, n, 1)))
+    boxes = np.concatenate([ctr - side / 2, ctr + side / 2], -1)
+    boxes[:, 0] = [[16.0, 24.0, 496.0, 500.0], [0.0, 40.0, 470.0, 512.0]]
+    return np.clip(boxes, 0, img).astype(np.float32)
+
+
+# geometry -> (boxes, feature map side of level 0): the K5 cases
+K5_GEOMETRIES = {"edge": (_edge_boxes, 64), "corners": (_corner_boxes, 128),
+                 "zero_hats": (_edge_boxes, 64),
+                 "all_levels": (_all_level_boxes, 128)}
+
+
 def _jitted(fn, *args):
     """Run a JAX pooler as ONE compiled computation and wait for it.  Called
     eagerly, the interpreted Pallas kernel's host callbacks run on runtime
@@ -116,17 +145,47 @@ def _jnp(tensors):
 
 # --- kernel level ---------------------------------------------------------------
 
-@pytest.mark.parametrize(**KERNEL_CASES)
-def test_k5_plain_matches_pallas_interpret(resolution, dtype):
+@pytest.mark.parametrize(
+    "resolution,dtype,geometry",
+    [(7, torch.float32, "edge"), (14, torch.float32, "edge"),
+     (7, torch.bfloat16, "edge"), (14, torch.bfloat16, "edge")]
+    + [(r, torch.bfloat16, g) for g in ("corners", "zero_hats", "all_levels")
+       for r in (7, 14)],
+    ids=["7", "14", "bf16-7", "bf16-14"]
+    + [f"bf16-{r}-{g}" for g in ("corners", "zero_hats", "all_levels")
+       for r in (7, 14)])
+def test_k5_plain_matches_pallas_interpret(resolution, dtype, geometry):
     """K5's plain version == the Pallas ``roi_pool_patches`` in interpret
     mode on the same buffers, ``meta`` and hats (the pooler's own: real
     boxes, bilinear hats), in float32 and in bfloat16; the wrapper takes the
-    plain version for CPU tensors without a launch."""
+    plain version for CPU tensors without a launch.  In bfloat16 also:
+    windows at every level's right and bottom edge (``corners``), boxes with
+    all-zero hats (``zero_hats``), boxes on all four levels in one call
+    (``all_levels``)."""
     from treedetection_tpu.ops.pallas import roi_align_kernel as rk
-    fmaps = [f.to(dtype) for f in _torch(_fmaps(50 + resolution))]
-    p = port.level_pool_inputs(fmaps, torch.from_numpy(_edge_boxes()),
+    make_boxes, side = K5_GEOMETRIES[geometry]
+    fmaps = [f.to(dtype) for f in _torch(_fmaps(50 + resolution, base=side))]
+    p = port.level_pool_inputs(fmaps, torch.from_numpy(make_boxes()),
                                resolution, STRIDES)
     n = p.meta.shape[0]
+    levels = p.meta[:, 0].long()
+    if geometry in ("corners", "all_levels"):
+        assert sorted(set(levels.tolist())) == [0, 1, 2, 3]
+    if geometry == "corners":
+        # windows reach past each level's features on the right and at the
+        # bottom of the last image's section, the buffer's last rows
+        hs = torch.tensor(p.geom.hs)[levels]
+        ws = torch.tensor(p.geom.ws)[levels]
+        row_in_image = p.meta[:, 1].long() - (n // 2 <= torch.arange(n)) \
+            * (hs + 48)
+        for lvl in range(4):
+            on = levels == lvl
+            assert bool((p.meta[on, 2] + 56 > ws[on]).any())
+            assert bool((row_in_image[on] + 48 > hs[on]).any())
+    if geometry == "zero_hats":
+        dead = torch.arange(n) % 5 == 0
+        p.geom.ay[dead] = 0.0
+        p.geom.ax[torch.arange(n) % 7 == 3] = 0.0
     want = np.asarray(_jitted(
         lambda f, m, a, b: rk.roi_pool_patches(f, m, a, b, resolution, 48, n,
                                                interpret=True),
@@ -135,6 +194,8 @@ def test_k5_plain_matches_pallas_interpret(resolution, dtype):
                                              resolution)
     _assert_matches(got, want)
     assert np.abs(want).max() > 0.1
+    if geometry == "zero_hats":
+        assert float(got[dead].float().abs().max()) == 0.0
     before = kernels.launches_patches
     assert torch.equal(kernels.roi_pool_patches(p.kpadded, p.meta, p.ay, p.ax,
                                                 resolution), got)

@@ -24,6 +24,7 @@ import pytest
 import yaml
 
 from test_torch_detection import (PIXEL, SCORE_TOL, _layer, _match_crowns)
+from test_torch_jax_native import jax_native  # noqa: F401 (fixture)
 from treedetection_tpu_torch import detection, prediction
 from treedetection_tpu_torch.config import Config, prepare_config
 from treedetection_tpu_torch.geo import Affine, write_geotiff
@@ -50,7 +51,9 @@ def _raw_config(out: str):
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def runs(tmp_path_factory, jax_native):
+    """``jax_native``: the JAX side traces with its native library
+    (``test_torch_jax_native.py``)."""
     from test_convert import _make_fake_d2_state_dict
     from treedetection_tpu.config import Config as JaxConfig
     from treedetection_tpu.config import get_config as jax_get_config

@@ -2,8 +2,9 @@
 
 Every shared library (the host C++ helpers under ``native/`` and the CUDA
 kernels under ``csrc/``) is compiled at first use into ``_build/`` beside this
-file, named by a hash of its sources and compiler command, so an edited source
-always rebuilds and a stale binary is never loaded.  The compile writes to a
+file, named by a hash of its sources, the headers they include from their own
+directory and the compiler command, so an edited source or header always
+rebuilds and a stale binary is never loaded.  The compile writes to a
 temporary name and renames it into place, which keeps concurrent builders
 (test workers, threads) from loading a half-written file.  A failed build
 raises: there is no fallback library.
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -47,19 +49,40 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build_shared_library(name: str, sources: Sequence[Path],
-                         command: List[str],
-                         headers: Sequence[Path] = ()) -> Path:
-    """Compile ``sources`` with ``command`` (the compiler and its flags,
-    without sources or ``-o``) into ``_build/<name>-<hash>.so`` unless that
-    file already exists; returns its path.  ``headers`` are the files the
-    sources include from their own directory: they are not given to the
-    compiler but count in the hash, so an edited header rebuilds too.  The
-    compiler's output is kept beside the library as ``<name>-<hash>.log``."""
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(sources: Sequence[Path]) -> List[Path]:
+    """The headers that ``sources`` include with ``#include "..."`` from
+    their own directory, and those that these include in turn, sorted."""
+    found, todo = set(), [Path(s) for s in sources]
+    while todo:
+        src = todo.pop()
+        for name in _LOCAL_INCLUDE.findall(src.read_text()):
+            header = src.parent / name
+            if header.is_file() and header not in found:
+                found.add(header)
+                todo.append(header)
+    return sorted(found)
+
+
+def library_path(name: str, sources: Sequence[Path],
+                 command: List[str]) -> Path:
+    """``_build/<name>-<hash>.so``: the hash covers ``command``, the sources
+    and :func:`local_headers`, so an edited header names another library."""
     digest = hashlib.sha256(" ".join(command).encode())
-    for src in list(sources) + list(headers):
+    for src in list(sources) + local_headers(sources):
         digest.update(Path(src).read_bytes())
-    out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_shared_library(name: str, sources: Sequence[Path],
+                         command: List[str]) -> Path:
+    """Compile ``sources`` with ``command`` (the compiler and its flags,
+    without sources or ``-o``) into :func:`library_path` unless that file
+    already exists; returns its path.  The compiler's output is kept beside
+    the library as ``<name>-<hash>.log``."""
+    out = library_path(name, sources, command)
     with _lock(name):
         if out.exists():
             return out

@@ -1,6 +1,6 @@
-// One box's pooling, shared by the ROIAlign patch poolers roi_pool_levels.cu
-// and roi_pool_resident.cu, and by roi_pool_flat.cu for float32 features
-// (its bfloat16 kernel is its own):
+// One box's pooling, shared by the ROIAlign patch pooler roi_pool_resident.cu,
+// and by roi_pool_flat.cu and roi_pool_levels.cu for float32 features (their
+// bfloat16 kernels share roi_pool_bf16.cuh):
 //
 //     out = A_y . window . A_x^T,   window = src[row0 : row0+P, col0 : col0+P+8, c]
 //

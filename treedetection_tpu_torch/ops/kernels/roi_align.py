@@ -26,10 +26,15 @@ they differ in where the window comes from:
 Column origins are multiples of 8 in all three, as in the TPU kernels.
 
 The sources (what bounds each kernel and its design are noted there) share
-``csrc/roi_pool_window.cuh``.  Each is compiled with nvcc for ``sm_90a`` at
-first use into the package's build directory and bound with ctypes.  For a
-CUDA tensor a wrapper launches its kernel or raises; only a tensor that lies
-on the CPU takes the plain PyTorch version beside it
+two device functions: ``pool_box`` (``csrc/roi_pool_window.cuh``) pools a box
+in all three in float32 and in K6 in bfloat16; ``pool_box_bf16``
+(``csrc/roi_pool_bf16.cuh``: the hats' span, ``cp.async`` staging,
+``mma.sync``) pools a box in K1 and K5 in bfloat16.  So K1, K5 and K6 are
+bit-equal in float32, and K1 and K5 in bfloat16.  Each source is compiled
+with nvcc for ``sm_90a`` at first use into the package's build directory
+(named by a hash that covers the headers it includes) and bound with
+ctypes.  For a CUDA tensor a wrapper launches its kernel or raises; only a
+tensor that lies on the CPU takes the plain PyTorch version beside it
 (``*_reference``), which the tests and ``chip_smoke.py`` hold the kernel
 against.
 
@@ -54,7 +59,6 @@ import torch
 from treedetection_tpu_torch.build import build_shared_library, nvcc_path
 
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
-_HEADER = _CSRC / "roi_pool_window.cuh"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 RESOLUTIONS = (7, 14)
@@ -94,7 +98,7 @@ def build(name: str = "roi_pool_flat") -> Path:
     if name not in _ARG_TYPES:
         raise ValueError(f"unknown kernel library {name!r}")
     return build_shared_library(name, [_CSRC / f"{name}.cu"],
-                                [nvcc_path()] + NVCC_FLAGS, headers=[_HEADER])
+                                [nvcc_path()] + NVCC_FLAGS)
 
 
 def _get_fn(name: str):
@@ -178,16 +182,27 @@ def hat_spans(ay: torch.Tensor, ax: torch.Tensor) -> torch.Tensor:
 
 # --- K1: one flat buffer -------------------------------------------------------
 
+def _check_bf16_kernel(buffers: Sequence[torch.Tensor], patch: int) -> None:
+    """What ``pool_box_bf16`` needs: C a multiple of 8, a patch of 1 to 48
+    rows and 16-byte aligned buffers (``cp.async`` copies 16 bytes)."""
+    c = buffers[0].shape[-1]
+    misaligned = [f.data_ptr() for f in buffers if f.data_ptr() % 16]
+    if c % 8 or not 1 <= patch <= 48 or misaligned:
+        raise ValueError(
+            f"the bfloat16 kernel needs C a multiple of 8, a patch of 1 to 48 "
+            f"rows and 16-byte aligned buffers; got C={c}, patch={patch}, "
+            f"misaligned addresses {[hex(a) for a in misaligned]}")
+
+
 def roi_pool_patches_flat(fcat: torch.Tensor, rows: torch.Tensor,
                           cols: torch.Tensor, ay: torch.Tensor,
                           ax: torch.Tensor, resolution: int,
                           patch: int = 48) -> torch.Tensor:
     """Pool N boxes -> (N, R, R, C) from one level-concatenated buffer.
 
-    On the card, float32 features take the kernel shared with K5 and K6 and
-    bfloat16 features the tensor-core kernel, which needs C a multiple of 8,
-    ``patch`` at most 48 and a 16-byte aligned ``fcat``; other bfloat16
-    inputs raise."""
+    On the card, float32 features take ``pool_box`` and bfloat16 features
+    ``pool_box_bf16``, which needs C a multiple of 8, ``patch`` at most 48
+    and a 16-byte aligned ``fcat``; other bfloat16 inputs raise."""
     global launches
     _check_common([fcat], {"rows": (rows, ()), "cols": (cols, ())}, ay, ax,
                   resolution, patch)
@@ -199,11 +214,7 @@ def roi_pool_patches_flat(fcat: torch.Tensor, rows: torch.Tensor,
                                                resolution, patch)
     _check_cuda(fcat, resolution)
     if fcat.dtype == torch.bfloat16:
-        if c % 8 or not 1 <= patch <= 48 or fcat.data_ptr() % 16:
-            raise ValueError(
-                f"the bfloat16 kernel needs C a multiple of 8, a patch of 1 "
-                f"to 48 rows and a 16-byte aligned buffer; got C={c}, "
-                f"patch={patch}, address {fcat.data_ptr():#x}")
+        _check_bf16_kernel([fcat], patch)
     out = torch.empty((n, resolution, resolution, c), dtype=fcat.dtype,
                       device=fcat.device)
     if n == 0:
@@ -256,20 +267,20 @@ def roi_pool_patches_flat_reference(fcat: torch.Tensor, rows: torch.Tensor,
 
 # --- K5: per-level buffers -----------------------------------------------------
 
-def _raise_on_fault(faults) -> None:
-    """``faults``: message -> bool tensor of the rows at fault.  All are
-    reduced on the tensors' device and fetched together, so a call on the
-    card pays one synchronisation for its value checks."""
-    flags = torch.stack([f.any() for f in faults.values()]).tolist()
-    for message, flag in zip(faults, flags):
-        if flag:
-            raise ValueError(message)
-
-
-def _level_faults(n_levels: int, meta: torch.Tensor):
-    return {f"meta[:, 0] must be a level in [0, {n_levels})":
-            (meta[:, 0] < 0) | (meta[:, 0] >= n_levels),
-            "meta[:, 2] must be multiples of 8": meta[:, 2] % 8 != 0}
+def _check_meta(meta: torch.Tensor, n_levels: int, *extra: torch.Tensor):
+    """Raise unless every ``meta[:, 0]`` is a level in [0, n_levels) and
+    every ``meta[:, 2]`` a multiple of 8; returns the host values of the
+    int32 0-d tensors ``extra``.  Everything is reduced on the tensors'
+    device and fetched together in four launches, so a call on the card
+    pays one synchronisation and little host time for its value checks."""
+    lo, hi = torch.aminmax(meta[:, 0])
+    lo, hi, odd, *rest = torch.stack(
+        [lo, hi, (meta[:, 2] & 7).amax(), *extra]).tolist()
+    if lo < 0 or hi >= n_levels:
+        raise ValueError(f"meta[:, 0] must be a level in [0, {n_levels})")
+    if odd:
+        raise ValueError("meta[:, 2] must be multiples of 8")
+    return rest
 
 
 def _check_levels(fmaps_padded, meta, ay, ax, resolution, patch) -> None:
@@ -295,19 +306,28 @@ def roi_pool_patches(fmaps_padded: Sequence[torch.Tensor], meta: torch.Tensor,
                      patch: int = 48) -> torch.Tensor:
     """Pool N boxes -> (N, R, R, C), each from the level buffer
     ``fmaps_padded[meta[i, 0]]`` at row ``meta[i, 1]``, column
-    ``meta[i, 2]``."""
+    ``meta[i, 2]``.
+
+    On the card, as :func:`roi_pool_patches_flat`: float32 features take
+    ``pool_box``, bfloat16 features ``pool_box_bf16``, which needs C a
+    multiple of 8, ``patch`` at most 48 and every level buffer 16-byte
+    aligned; other bfloat16 inputs raise."""
     global launches_patches
     _check_levels(fmaps_padded, meta, ay, ax, resolution, patch)
     if meta.shape[0]:
-        _raise_on_fault(_level_faults(len(fmaps_padded), meta))
+        _check_meta(meta, len(fmaps_padded))
     first = fmaps_padded[0]
     if first.device.type == "cpu":
         return roi_pool_patches_reference(fmaps_padded, meta, ay, ax,
                                           resolution, patch)
     _check_cuda(first, resolution)
+    if first.dtype == torch.bfloat16:
+        _check_bf16_kernel(fmaps_padded, patch)
     n, c = meta.shape[0], first.shape[-1]
     out = torch.empty((n, resolution, resolution, c), dtype=first.dtype,
                       device=first.device)
+    if n == 0:
+        return out
     fn = _get_fn("roi_pool_levels")
     bases, rows, widths = _level_arrays(fmaps_padded)
     with torch.cuda.device(first.device):
@@ -407,12 +427,11 @@ def _check_resident(fmaps_padded, meta, ay, ax, resolution, patch, chunk,
         lvl = meta[:, 0].long().clamp(0, len(fmaps_padded) - 1)
         max_r = torch.tensor(sec_hs, device=meta.device)[lvl] - patch
         max_c = torch.tensor(sec_ws, device=meta.device)[lvl] - (patch + 8)
-        _raise_on_fault({
-            **_level_faults(len(fmaps_padded), meta),
-            "window origins must be image-relative and clamped into the "
-            "unpadded sections":
-            (meta[:, 1] < 0) | (meta[:, 1] > max_r) | (meta[:, 2] < 0)
-            | (meta[:, 2] > max_c)})
+        outside = ((meta[:, 1] < 0) | (meta[:, 1] > max_r) | (meta[:, 2] < 0)
+                   | (meta[:, 2] > max_c)).any().to(meta.dtype)
+        if _check_meta(meta, len(fmaps_padded), outside)[0]:
+            raise ValueError("window origins must be image-relative and "
+                             "clamped into the unpadded sections")
 
 
 def roi_pool_resident(fmaps_padded: Sequence[torch.Tensor], meta: torch.Tensor,
