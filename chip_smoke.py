@@ -11,15 +11,17 @@ build,kernel,predictor,model,pipeline,pipeline_two_model:
                checkout (one nvcc per CUDA kernel source, g++ for the host
                helpers), all compilers started together; prints each
                kernel's ``ptxas`` lines (registers, spills and shared memory
-               of K1's and K5's bf16 kernels, which must not spill).
+               of the bf16 kernels of K1, K5 and K6, all ``pool_box_bf16``,
+               which must not spill).
 2. kernel    — K1, K5 and K6 (the flat, per-level and image-resident
                ROIAlign patch poolers; K6 at c_split 1 and 2) against their
                plain PyTorch versions and against each other on the same
-               boxes (K5 bit-equal to K1 in both dtypes) at production
-               shapes (box pool N=5120 R=7, mask pool N=1000 R=14, 1024^2
-               input at batch 10, C=256), in float32 with TF32 off and in
-               bfloat16 (K6 in bfloat16 also timed at 1 to 32 boxes per
-               block; K1 and K5 in turns); K2/K3/K4 (the pairwise dedupe,
+               boxes (K5 and K6 bit-equal to K1 in both dtypes) at
+               production shapes (box pool N=5120 R=7, mask pool N=1000
+               R=14, 1024^2 input at batch 10, C=256), in float32 with TF32
+               off and in bfloat16 (K6 also at 1 to 32 boxes per block,
+               each bit-equal to K1; K1, K5 and K6 in bfloat16 timed in
+               turns); K2/K3/K4 (the pairwise dedupe,
                containment and IoU masks) against their plain versions
                with EXACT equality at one production row block (8192 rows x
                32768 columns), at ragged and square shapes, and on
@@ -49,8 +51,8 @@ build,kernel,predictor,model,pipeline,pipeline_two_model:
                tiles each pass skipped, the fused layer, K5's launch count
                (K1's is 0), and that a second call predicts nothing; then
                one Predictor pass over the 16-tile raster of phase 3 under
-               ``TD_ROI_RESIDENT=1`` (K6), held against that phase's flat
-               pass.
+               ``TD_ROI_RESIDENT=1`` (K6), which must write that phase's
+               flat pass's tile files byte for byte.
 7. kernels   — the per-kernel summary line, then the card's name and power
                limit, then the final status line.
 
@@ -182,16 +184,17 @@ def phase_build(state):
         log = results[name][0].with_suffix(".log")
         ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
                        if "registers" in ln or "spill" in ln or "smem" in ln]
-    # the bf16 kernels of K1 and K5, both pool_box_bf16: registers, spills,
-    # static shared memory (ptxas) and the dynamic shared memory a block
-    # asks for (from the built library)
+    # the bf16 kernels of K1, K5 and K6, all pool_box_bf16: registers,
+    # spills, static shared memory (ptxas) and the dynamic shared memory a
+    # block asks for (from the built library)
     import ctypes
     levels = ctypes.CDLL(str(results["roi_pool_levels"][0]))
     dynamic = {f"R{r}": levels.td_roi_pool_bf16_smem_bytes(r) for r in (7, 14)}
     bf16_ptxas = {}
     for key, lib, kernel in (
             ("k1", "roi_pool_flat", "roi_pool_flat_bf16_kernel"),
-            ("k5", "roi_pool_levels", "roi_pool_levels_bf16_kernel")):
+            ("k5", "roi_pool_levels", "roi_pool_levels_bf16_kernel"),
+            ("k6", "roi_pool_resident", "roi_pool_resident_bf16_kernel")):
         report = ptxas_report(
             results[lib][0].with_suffix(".log").read_text(), kernel)
         for res, row in report.items():
@@ -203,10 +206,10 @@ def phase_build(state):
     state["bf16_ptxas"] = bf16_ptxas
     for key, report in bf16_ptxas.items():
         if sorted(report) != ["R14", "R7"] or any(
-                v["spill_stores"] or v["spill_loads"]
+                v["spill_stores"] or v["spill_loads"] or v["registers"] > 128
                 or not v["dynamic_smem_bytes"] for v in report.values()):
             fail(f"build: {key.upper()}'s bf16 kernel: {report} (expected "
-                 f"R=7 and R=14, no spills)")
+                 f"R=7 and R=14, no spills, at most 128 registers)")
 
 
 def ptxas_report(log: str, kernel: str):
@@ -498,80 +501,90 @@ def phase_kernel(state):
                 if name == "k1":
                     k1_out = got
                 else:   # the same boxes through another layout: K1, K5
-                    # and K6 share pool_box in float32, K1 and K5
-                    # pool_box_bf16 in bfloat16 (bit-equal); bfloat16 K6 on
-                    # pool_box is held to the stated tolerance
+                    # and K6 share pool_box in float32 and pool_box_bf16 in
+                    # bfloat16, so they must be bit-equal
                     mine = _cut_padding(got, res[int(name[-1])]) \
                         if name.startswith("k6") else got
-                    ok, err_k1, _ = check_close(mine, k1_out, dname)
-                    exact = dtype == torch.float32 or name == "k5"
-                    if exact:
-                        ok = err_k1 == 0.0
+                    _, err_k1, _ = check_close(mine, k1_out, dname)
                     row["max_abs_err_vs_k1"] = err_k1
                     if dtype == torch.bfloat16:
                         row["vs_k1"] = ulp_errors(mine, k1_out)
-                    if not ok:
+                    if err_k1 != 0.0:
                         fail(f"kernel {name} {pool} {dname}: differs from K1 "
-                             f"on the same boxes by {err_k1} (expected "
-                             f"{0.0 if exact else tol})")
+                             f"on the same boxes by {err_k1} (expected 0.0)")
                 del got, ref
                 row["ms"] = _timed_ms(lambda: fn(*args))
                 row["plain_ms"] = _timed_ms(lambda: plain(*args), 1, 3)
                 row.update(bound)
                 emit(row)
                 summary.setdefault(name, {})[(pool, dname)] = row
+            # K6 by the boxes one block serves, at the C-split the launcher
+            # picks: what the pooler's chunk constants rest on (the
+            # kernel's device time: CUDA events also take in the wrapper's
+            # host work, the same at every chunk); every chunk must give
+            # K1's bits
+            k6_kernel = ("roi_pool_resident_bf16_kernel"
+                         if dtype == torch.bfloat16
+                         else "roi_pool_resident_kernel")
+            by_chunk, device_by_chunk = {}, {}
+            for chunk in K6_CHUNKS:
+                ri = resident_pool_inputs(lvl, r, 2, b, chunk=chunk,
+                                          c_split=picked)
+                args = (ri.kpadded, ri.meta, ri.ay, ri.ax, r, PATCH,
+                        ri.chunk, b, picked)
+                got = _cut_padding(k.roi_pool_resident(*args), ri)
+                _, err, _ = check_close(got, k1_out, dname)
+                if err != 0.0:
+                    fail(f"kernel k6 {pool} {dname} chunk {chunk}: differs "
+                         f"from K1 on the same boxes by {err} (expected 0.0)")
+                del got
+                by_chunk[chunk] = _timed_ms(
+                    lambda: k.roi_pool_resident(*args))
+                device_by_chunk[chunk] = _device_ms(
+                    lambda: k.roi_pool_resident(*args), k6_kernel)
+                del ri, args
+            emit({"phase": "kernel", "kernel": "k6_by_chunk",
+                  "pool": pool, "dtype": dname, "c_split": picked,
+                  "ms_by_chunk": by_chunk,
+                  "device_ms_by_chunk": device_by_chunk,
+                  "chunk_of_the_pooler": res[1].chunk,
+                  "k1_ms": summary["k1"][(pool, dname)]["ms"],
+                  "k5_ms": summary["k5"][(pool, dname)]["ms"]})
+            summary.setdefault("k6_by_chunk", {})[(pool, dname)] = {
+                "ms": by_chunk, "device_ms": device_by_chunk}
             if dtype == torch.bfloat16:
-                # K6 by the boxes one block serves, at the C-split the
-                # launcher picks: what the pooler's chunk constants rest on
-                by_chunk = {}
-                for chunk in K6_CHUNKS:
-                    ri = resident_pool_inputs(lvl, r, 2, b, chunk=chunk,
-                                              c_split=picked)
-                    args = (ri.kpadded, ri.meta, ri.ay, ri.ax, r, PATCH,
-                            ri.chunk, b, picked)
-                    got = _cut_padding(k.roi_pool_resident(*args), ri)
-                    ok, err, tol = check_close(got, k1_out, dname)
-                    if not ok:
-                        fail(f"kernel k6 {pool} chunk {chunk}: differs from "
-                             f"K1 on the same boxes by {err} vs {tol}")
-                    del got
-                    by_chunk[chunk] = _timed_ms(
-                        lambda: k.roi_pool_resident(*args))
-                    del ri, args
-                emit({"phase": "kernel", "kernel": "k6_by_chunk",
-                      "pool": pool, "dtype": dname, "c_split": picked,
-                      "ms_by_chunk": by_chunk,
-                      "chunk_of_the_pooler": res[picked].chunk,
-                      "k1_ms": summary["k1"][(pool, dname)]["ms"],
-                      "k5_ms": summary["k5"][(pool, dname)]["ms"]})
-                summary.setdefault("k6_by_chunk", {})[pool] = by_chunk
-                # K1 beside K5, both on pool_box_bf16, timed in turns on the
-                # same boxes: CUDA events around each call (the wrapper's
-                # host work included), then the profiler's device time of
-                # the kernel alone
-                def run_k1():
-                    return k.roi_pool_patches_flat(*calls["k1"][2])
-
-                def run_k5():
-                    return k.roi_pool_patches(*calls["k5"][2])
-
-                turns = [_timed_ms(run_k1), _timed_ms(run_k5),
-                         _timed_ms(run_k5), _timed_ms(run_k1)]
-                dev_ms = [_device_ms(run_k1, "roi_pool_flat_bf16_kernel"),
-                          _device_ms(run_k5, "roi_pool_levels_bf16_kernel"),
-                          _device_ms(run_k5, "roi_pool_levels_bf16_kernel"),
-                          _device_ms(run_k1, "roi_pool_flat_bf16_kernel")]
-                emit({"phase": "kernel", "kernel": "k1_beside_k5",
-                      "pool": pool, "dtype": dname,
-                      "k1_ms_turns": [turns[0], turns[3]],
-                      "k5_ms_turns": [turns[1], turns[2]],
-                      "k1_over_k5": (turns[0] + turns[3])
-                      / (turns[1] + turns[2]),
-                      "k1_device_ms_turns": [dev_ms[0], dev_ms[3]],
-                      "k5_device_ms_turns": [dev_ms[1], dev_ms[2]],
-                      "k1_bound_ms": summary["k1"][(pool, dname)]["bound_ms"],
-                      "k5_bound_ms": summary["k5"][(pool, dname)]["bound_ms"],
-                      "ptxas": state.get("bf16_ptxas")})
+                # K1, K5 and K6 (at the C-split the launcher picks), all on
+                # pool_box_bf16, timed in turns on the same boxes (K1, K5,
+                # K6, K6, K5, K1): CUDA events around each call (the
+                # wrapper's host work included), then the profiler's device
+                # time of the kernel alone
+                runs = {
+                    "k1": (lambda: k.roi_pool_patches_flat(*calls["k1"][2]),
+                           "roi_pool_flat_bf16_kernel"),
+                    "k5": (lambda: k.roi_pool_patches(*calls["k5"][2]),
+                           "roi_pool_levels_bf16_kernel"),
+                    "k6": (lambda: k.roi_pool_resident(
+                        *calls[f"k6_c{picked}"][2]),
+                        "roi_pool_resident_bf16_kernel")}
+                order = ("k1", "k5", "k6", "k6", "k5", "k1")
+                turns = {key: [] for key in runs}
+                dev_turns = {key: [] for key in runs}
+                for key in order:
+                    turns[key].append(_timed_ms(runs[key][0]))
+                for key in order:
+                    dev_turns[key].append(_device_ms(*runs[key]))
+                line = {"phase": "kernel", "kernel": "k1_k5_k6_in_turns",
+                        "pool": pool, "dtype": dname, "order": order,
+                        "k6_c_split": picked,
+                        "k6_chunk": res[picked].chunk}
+                for key in runs:
+                    name = f"k6_c{picked}" if key == "k6" else key
+                    line[f"{key}_ms_turns"] = turns[key]
+                    line[f"{key}_device_ms_turns"] = dev_turns[key]
+                    line[f"{key}_bound_ms"] = \
+                        summary[name][(pool, dname)]["bound_ms"]
+                line["ptxas"] = state.get("bf16_ptxas")
+                emit(line)
             del k1_out, flat, lvl, res, calls
             torch.cuda.empty_cache()
 
@@ -801,6 +814,11 @@ def phase_predictor(state, workdir: Path):
     state["pred_timed_dir"] = out2
 
 
+def _tile_files(pred_dir: Path):
+    """tile file name -> the Predictor's JSON file, as bytes."""
+    return {p.name: p.read_bytes() for p in pred_dir.glob("Prediction_*.json")}
+
+
 def phase_predictor_levels(state, workdir: Path):
     """The predictor phase's Predictor over the same 16 tiles under
     ``TD_ROI_FLAT=0``: K5 pools in place of K1.  In bfloat16 both run
@@ -818,9 +836,7 @@ def phase_predictor_levels(state, workdir: Path):
         wall = time.time() - t0
     counts = _roi_launches(k)                 # just after
     batches = math.ceil(n_written / pred.batch_size)
-    flat = {p.name: p.read_bytes()
-            for p in state["pred_timed_dir"].glob("Prediction_*.json")}
-    mine = {p.name: p.read_bytes() for p in out.glob("Prediction_*.json")}
+    flat, mine = _tile_files(state["pred_timed_dir"]), _tile_files(out)
     differ = sorted(name for name in flat if mine.get(name) != flat[name])
     row = {"phase": "predictor_levels", "tiles": n_written,
            "batches": batches, "wall_s": wall, "launches": counts,
@@ -1227,12 +1243,6 @@ def _predicted_tiles(pred_dir: Path):
             for p in pred_dir.glob("Prediction_*.json")}
 
 
-def _tile_crowns(pred_dir: Path):
-    """tile file name -> the tile's crowns (the Predictor's JSON)."""
-    return {p.name: json.loads(p.read_text())
-            for p in sorted(pred_dir.glob("Prediction_*.json"))}
-
-
 def phase_pipeline_two_model(state, workdir: Path):
     import shutil
 
@@ -1390,38 +1400,24 @@ def phase_pipeline_two_model(state, workdir: Path):
         res_wall = time.time() - t0
     counts = _roi_launches(k)                 # just after
     res_batches = math.ceil(n_written / pred.batch_size)
-    flat, res = _tile_crowns(state["pred_timed_dir"]), _tile_crowns(out_res)
-    identical = sum(flat[name] == res.get(name) for name in flat)
-    score_err, vertex_err, count_diff = 0.0, 0.0, []
-    for name in flat:
-        a, b = flat[name], res.get(name, [])
-        if len(a) != len(b):
-            count_diff.append(name)
-            continue
-        for ca, cb in zip(a, b):
-            score_err = max(score_err, abs(ca["score"] - cb["score"]))
-            ra = np.asarray(ca["polygon_coords"][0], dtype=np.float64)
-            rb = np.asarray(cb["polygon_coords"][0], dtype=np.float64)
-            if ra.shape == rb.shape:
-                vertex_err = max(vertex_err, float(np.abs(ra - rb).max()))
+    flat, mine = _tile_files(state["pred_timed_dir"]), _tile_files(out_res)
+    differ = sorted(name for name in flat if mine.get(name) != flat[name])
     row = {"phase": "predictor_resident", "tiles": n_written,
            "batches": res_batches, "wall_s": res_wall, "launches": counts,
-           "tiles_identical_to_flat_pass": identical,
-           "tiles_with_other_crown_count": count_diff,
-           "crowns": sum(len(v) for v in res.values()),
-           "crowns_flat_pass": sum(len(v) for v in flat.values()),
-           "max_score_diff": score_err,
-           "max_vertex_diff_of_equal_shaped_rings": vertex_err,
-           "tolerance": "same tiles, same crown count per tile, scores "
-                        "within 0.02 (bf16: the hats of clamped windows are "
-                        "folded again, an output may move by one bf16 ulp)"}
+           "tile_files": len(mine), "tile_files_of_the_default_pass":
+           len(flat), "files_that_differ": differ,
+           "crowns": sum(len(json.loads(b)) for b in mine.values()),
+           "tolerance": "byte-for-byte equal tile files (K6 and K1 share "
+                        "pool_box_bf16; K6's refolded hats are K1's shifted "
+                        "by its clamp)"}
     emit(row)
     if counts != {"k1": 0, "k5": 0, "k6": 2 * res_batches}:
         fail(f"predictor_resident: ROI launches {counts} for {res_batches} "
-             f"batches under TD_ROI_RESIDENT=1")
-    if sorted(flat) != sorted(res) or count_diff or score_err > 0.02:
-        fail(f"predictor_resident: detections differ from the flat pass: "
-             f"{row}")
+             f"batches under TD_ROI_RESIDENT=1 (expected K6 twice per batch "
+             f"and no other)")
+    if sorted(mine) != sorted(flat) or differ:
+        fail(f"predictor_resident: the tile files differ from the default "
+             f"pass's: {row}")
     state["resident"] = row
 
 
@@ -1488,9 +1484,14 @@ def kernels_line(state):
                     "pipeline": pipe["launches"]["k6"]},
                    f"; on the path under TD_ROI_RESIDENT=1; headline numbers "
                    f"at c_split={picked}, which the launcher picks in bf16")]
-    for entry, key in zip(kernels, ("k1", "k5")):
+    for entry, key in zip(kernels, ("k1", "k5", "k6")):
+        entry["device_function"] = {"bfloat16": "pool_box_bf16",
+                                    "float32": "pool_box"}
         entry["ptxas_bf16"] = state.get("bf16_ptxas", {}).get(key)
-    kernels[-1]["ms_by_chunk_bf16"] = roi["k6_by_chunk"]
+    for dname, suffix in (("bfloat16", "bf16"), ("float32", "f32")):
+        kernels[-1][f"ms_by_chunk_{suffix}"] = {
+            pool: v for (pool, d), v in roi["k6_by_chunk"].items()
+            if d == dname}
     for mode, (number, wrapper, line) in PAIR_KERNELS.items():
         r = state["pairwise"][mode]
         kernels.append({

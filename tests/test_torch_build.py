@@ -11,12 +11,12 @@ from treedetection_tpu_torch import build
 from treedetection_tpu_torch.ops.kernels import pairwise, roi_align
 
 CSRC = roi_align._CSRC
-# library -> the headers its source must hash (K1 and K5 share
-# pool_box_bf16, K6 only pool_box)
+# library -> the headers its source must hash (K1, K5 and K6 share
+# pool_box_bf16 and pool_box)
 LIBRARIES = {
     "roi_pool_flat": {"roi_pool_bf16.cuh", "roi_pool_window.cuh"},
     "roi_pool_levels": {"roi_pool_bf16.cuh", "roi_pool_window.cuh"},
-    "roi_pool_resident": {"roi_pool_window.cuh"},
+    "roi_pool_resident": {"roi_pool_bf16.cuh", "roi_pool_window.cuh"},
     "pairwise_boxes": set(),
 }
 

@@ -104,6 +104,31 @@ SPAN_CASES = {
 }
 
 
+def _span_hats(rng, case, resolution, n, dead, patch=48):
+    """float32 hats (n, R, patch) and (n, R, patch + 8), random on the
+    case's span and zero elsewhere; ``ay`` all zero for the boxes ``dead``.
+    """
+    rows_kept, cols_kept, _ = SPAN_CASES[case]
+    ay = np.zeros((n, resolution, patch), dtype=np.float32)
+    ax = np.zeros((n, resolution, patch + 8), dtype=np.float32)
+    ay[:, :, rows_kept] = rng.uniform(0.01, 0.5, ay[:, :, rows_kept].shape)
+    ax[:, :, cols_kept] = rng.uniform(0.01, 0.5, ax[:, :, cols_kept].shape)
+    ay[list(dead)] = 0.0
+    return ay, ax
+
+
+def _stacked(bufs):
+    """K1's buffer of the same cells: ``bufs`` stacked into one, zero-padded
+    to the widest; and the first row of each."""
+    wmax = max(f.shape[1] for f in bufs)
+    fcat = bufs[0].new_zeros((sum(f.shape[0] for f in bufs), wmax,
+                              bufs[0].shape[-1]))
+    base = np.cumsum([0] + [f.shape[0] for f in bufs])[:-1]
+    for b0, f in zip(base, bufs):
+        fcat[b0:b0 + f.shape[0], :f.shape[1]] = f
+    return fcat, base
+
+
 @pytest.mark.parametrize("n", [0, 37])
 @pytest.mark.parametrize("case", sorted(SPAN_CASES))
 @pytest.mark.parametrize("resolution", [7, 14])
@@ -112,20 +137,14 @@ def test_k1_bf16_spans(cuda, resolution, case, n):
     the plain version on hats cut to one span, at C = 256, N = 37 (a
     multiple of nothing the kernel tiles by) and N = 0.  Boxes whose hats are
     all zero pool to exact zeros; N = 0 launches nothing."""
-    rows_kept, cols_kept, zero = SPAN_CASES[case]
+    zero = [i for i in SPAN_CASES[case][2] if i < n]
     rng = np.random.default_rng(resolution * 100 + n)
     c, patch = 256, 48
     fcat = torch.from_numpy(rng.standard_normal((200, 120, c)).astype(
         np.float32)).to(cuda, torch.bfloat16)
     rows = torch.from_numpy(rng.integers(0, 200 - patch, n).astype(np.int32))
     cols = torch.from_numpy((rng.integers(0, 8, n) * 8).astype(np.int32))
-    ay = np.zeros((n, resolution, patch), dtype=np.float32)
-    ax = np.zeros((n, resolution, patch + 8), dtype=np.float32)
-    ay[:, :, rows_kept] = rng.uniform(0.01, 0.5, ay[:, :, rows_kept].shape)
-    ax[:, :, cols_kept] = rng.uniform(0.01, 0.5, ax[:, :, cols_kept].shape)
-    for i in zero:
-        if i < n:
-            ay[i] = 0.0
+    ay, ax = _span_hats(rng, case, resolution, n, zero)
     args = (fcat, rows.to(cuda), cols.to(cuda), torch.from_numpy(ay).to(cuda),
             torch.from_numpy(ax).to(cuda), resolution)
     before = k1.launches
@@ -135,8 +154,7 @@ def test_k1_bf16_spans(cuda, resolution, case, n):
     assert got.shape == (n, resolution, resolution, c)
     ref = k1.roi_pool_patches_flat_reference(*args)
     _assert_close(got, ref, torch.bfloat16)
-    dead = [i for i in zero if i < n] if case != "all_zero" else range(n)
-    for i in dead:
+    for i in (zero if case != "all_zero" else range(n)):
         assert float(got[i].float().abs().max()) == 0.0
     if n and case != "all_zero":
         assert float(ref.float().abs().max()) > 0.1
@@ -154,7 +172,6 @@ def _level_span_inputs(dev, resolution, case, n):
     row and column), random hats cut to the case's span; and K1's inputs on
     the same cells: the buffers stacked into one, zero-padded to the widest.
     """
-    rows_kept, cols_kept, zero = SPAN_CASES[case]
     rng = np.random.default_rng(resolution * 100 + n + 1)
     c, patch = 256, 48
     bufs = [torch.from_numpy(rng.standard_normal((h, w, c)).astype(
@@ -167,20 +184,10 @@ def _level_span_inputs(dev, resolution, case, n):
     col = rng.integers(0, max_col[level] // 8 + 1) * 8
     row[:4], col[:4] = max_row[level[:4]], max_col[level[:4]]
     meta = np.stack([level, row, col], axis=1).astype(np.int32)
-    ay = np.zeros((n, resolution, patch), dtype=np.float32)
-    ax = np.zeros((n, resolution, patch + 8), dtype=np.float32)
-    ay[:, :, rows_kept] = rng.uniform(0.01, 0.5, ay[:, :, rows_kept].shape)
-    ax[:, :, cols_kept] = rng.uniform(0.01, 0.5, ax[:, :, cols_kept].shape)
-    for i in zero:
-        if i < n:
-            ay[i] = 0.0
+    ay, ax = _span_hats(rng, case, resolution, n,
+                        [i for i in SPAN_CASES[case][2] if i < n])
     ay, ax = torch.from_numpy(ay).to(dev), torch.from_numpy(ax).to(dev)
-    wmax = max(w for _, w in LEVEL_SHAPES)
-    fcat = torch.zeros((sum(h for h, _ in LEVEL_SHAPES), wmax, c),
-                       dtype=torch.bfloat16, device=dev)
-    base = np.cumsum([0] + [h for h, _ in LEVEL_SHAPES])[:-1]
-    for b0, f in zip(base, bufs):
-        fcat[b0:b0 + f.shape[0], :f.shape[1]] = f
+    fcat, base = _stacked(bufs)
     k5 = (tuple(bufs), torch.from_numpy(meta).to(dev), ay, ax, resolution)
     k1 = (fcat, torch.from_numpy((base[level] + row).astype(np.int32)).to(dev),
           torch.from_numpy(col.astype(np.int32)).to(dev), ay, ax, resolution)
@@ -279,6 +286,156 @@ def test_k6_matches_plain_version(cuda, resolution, dtype, c_split):
         (128,) + got.shape[1:])
     _assert_close(cut, k1.roi_pool_patches(p.kpadded, p.meta, p.ay, p.ax,
                                            resolution), dtype)
+
+
+# (H_l, W_l) of the four unpadded levels of the K6 span cases: each image's
+# section of level l is (H_l + 48) x (W_l + 56); the two lower levels are
+# shorter than a window, so their unpadded corner takes in padding rows, as
+# the top levels of the production pyramid do
+RESIDENT_LEVELS = ((88, 80), (44, 40), (22, 20), (11, 10))
+
+
+def _resident_span_inputs(dev, resolution, case, n_per, chunk, n_images=2):
+    """K6's inputs for one of SPAN_CASES: four bf16 level buffers of
+    ``n_images`` sections at C = 256, random features everywhere (padding
+    too, so that a misplaced read shows), ``n_per`` boxes per image on every
+    level with origins in each section's unpadded corner (the first four of
+    each image at each level's last origin: a window that ends on the
+    section's last unpadded row and column), random hats cut to the case's
+    span; and K1's inputs on the same cells: the buffers stacked into one,
+    zero-padded to the widest."""
+    rng = np.random.default_rng(resolution * 100 + n_per + 2)
+    c, patch = 256, 48
+    bufs = [torch.from_numpy(rng.standard_normal(
+        (n_images * (h + patch), w + patch + 8, c)).astype(np.float32)).to(
+            dev, torch.bfloat16) for h, w in RESIDENT_LEVELS]
+    _, sec_hs, sec_ws = k1.resident_geometry(bufs, n_images, patch)
+    max_row = np.array(sec_hs) - patch
+    max_col = np.array(sec_ws) - patch - 8
+    n = n_images * n_per
+    level = rng.integers(0, 4, n)
+    row = rng.integers(0, max_row[level] + 1)
+    col = rng.integers(0, max_col[level] // 8 + 1) * 8
+    for b in range(n_images if n_per >= 4 else 0):
+        first = b * n_per + np.arange(4)
+        level[first] = np.arange(4)
+        row[first], col[first] = max_row, max_col
+    meta = np.stack([level, row, col], axis=1).astype(np.int32)
+    dead = [b * n_per + i for b in range(n_images)
+            for i in SPAN_CASES[case][2] if i < n_per]
+    ay, ax = _span_hats(rng, case, resolution, n, dead)
+    ay, ax = torch.from_numpy(ay).to(dev), torch.from_numpy(ax).to(dev)
+    fcat, base = _stacked(bufs)
+    image = np.arange(n) // max(n_per, 1)
+    src_h = np.array([h + patch for h, _ in RESIDENT_LEVELS])
+    k6 = (tuple(bufs), torch.from_numpy(meta).to(dev), ay, ax, resolution,
+          patch, chunk, n_images, 2)
+    k1_args = (fcat, torch.from_numpy((base[level] + image * src_h[level]
+                                       + row).astype(np.int32)).to(dev),
+               torch.from_numpy(col.astype(np.int32)).to(dev), ay, ax,
+               resolution)
+    return k6, k1_args, dead
+
+
+@pytest.mark.parametrize("chunk", [1, 37])
+@pytest.mark.parametrize("n_per", [0, 37])
+@pytest.mark.parametrize("case", sorted(SPAN_CASES))
+@pytest.mark.parametrize("resolution", [7, 14])
+def test_k6_bf16_spans(cuda, resolution, case, n_per, chunk):
+    """K6's bf16 kernel (K1's pool_box_bf16 per box, in K6's image-ordered
+    grid, two C-blocks) against its plain version on K1's span cases, two
+    images of 37 boxes (a multiple of nothing the kernel tiles by) or none
+    (no launch), boxes on every level and windows that end on each
+    section's last unpadded row and column, at C = 256; one box per block
+    and all 37 of an image in one block (boxes with all-zero hats between
+    real ones); and EQUAL to K1 on the same cells."""
+    k6_args, k1_args, dead = _resident_span_inputs(cuda, resolution, case,
+                                                   n_per, chunk)
+    n = 2 * n_per
+    before = (k1.launches, k1.launches_resident)
+    got = k1.roi_pool_resident(*k6_args)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.launches_resident) == (
+        before[0], before[1] + (1 if n else 0))
+    assert got.shape == (n, resolution, resolution, 256)
+    ref = k1.roi_pool_resident_reference(*k6_args)
+    _assert_close(got, ref, torch.bfloat16)
+    assert torch.equal(got, k1.roi_pool_patches_flat(*k1_args))
+    for i in (dead if case != "all_zero" else range(n)):
+        assert float(got[i].float().abs().max()) == 0.0
+    if n and case != "all_zero":
+        assert float(ref.float().abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 7])
+@pytest.mark.parametrize("c_split", [1, 2])
+@pytest.mark.parametrize("resolution", [7, 14])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_equals_k1_on_the_same_boxes(cuda, resolution, dtype, c_split,
+                                        chunk):
+    """The pooler's own inputs for both layouts (``resident_pool_inputs``
+    and ``flat_pool_inputs`` of the same features and boxes, boxes reaching
+    the image's edges, so that the clamp moves windows): K6 gives K1's bits
+    after each image's padding is cut off, in float32 (both pool_box) and in
+    bfloat16 (both pool_box_bf16), at whole C and two C-blocks, at 1, 2 and
+    7 boxes per block.  Two boxes of each image get zero hats, so that at
+    chunk 7 an all-zero box sits between real boxes of a block, and each
+    image's last block holds one real box and six padding boxes."""
+    p = _inputs(cuda, dtype, resolution, prep=level_pool_inputs)
+    f = _inputs(cuda, dtype, resolution)
+    r = resident_pool_inputs(p, resolution, 2, n_images=2, chunk=chunk,
+                             c_split=c_split)
+    per = 64 + r.pad_per
+    assert r.pad_per == {1: 0, 2: 0, 7: 6}[chunk]
+    # the clamp moved some windows: their hats were folded again
+    assert not torch.equal(r.ay.reshape(2, per, -1)[:, :64],
+                           p.ay.reshape(2, 64, -1))
+    ay, ax = f.ay.clone(), f.ax.clone()
+    for b in range(2):
+        for i in (3, 10):
+            ay[b * 64 + i] = 0.0
+            r.ay[b * per + i] = 0.0
+    before = k1.launches_resident
+    got = k1.roi_pool_resident(r.kpadded, r.meta, r.ay, r.ax, resolution, 48,
+                               r.chunk, 2, c_split)
+    torch.cuda.synchronize()
+    assert k1.launches_resident == before + 1
+    cut = got.reshape((2, per) + got.shape[1:])[:, :64].reshape(
+        (128,) + got.shape[1:])
+    want = k1.roi_pool_patches_flat(f.kcat, f.rows, f.cols, ay, ax,
+                                    resolution)
+    torch.cuda.synchronize()
+    assert float(want.float().abs().max()) > 0.1
+    assert torch.equal(cut, want)
+
+
+def test_k6_bf16_raises_on_c_blocks_of_other_than_32_channels(cuda):
+    """pool_box_bf16 bounds its 32-channel slice by C, not by the C-block:
+    a bfloat16 call whose C-block is not a multiple of 32 raises and
+    launches nothing (float32 takes any C-block); so do the inputs the
+    other bf16 kernels refuse."""
+    p = _inputs(cuda, torch.bfloat16, 7, n=8, prep=level_pool_inputs)
+    r = resident_pool_inputs(p, 7, 2, n_images=2, chunk=4, c_split=4)
+    args = (r.meta, r.ay, r.ax, 7, 48, r.chunk, 2)
+    before = k1.launches_resident
+    with pytest.raises(ValueError, match="multiple of 32"):
+        k1.roi_pool_resident(r.kpadded, *args, 4)
+    c12 = [torch.zeros(f.shape[:2] + (12,), dtype=torch.bfloat16,
+                       device=cuda) for f in r.kpadded]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        k1.roi_pool_resident(c12, *args, 1)
+    shifted = torch.zeros(r.kpadded[1].numel() + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].view(r.kpadded[1].shape)
+    with pytest.raises(ValueError, match="aligned"):
+        k1.roi_pool_resident([r.kpadded[0], shifted] + list(r.kpadded[2:]),
+                             *args, 1)
+    assert k1.launches_resident == before
+    f32 = [f.float() for f in r.kpadded]
+    out = k1.roi_pool_resident(f32, *args, 4)
+    torch.cuda.synchronize()
+    assert k1.launches_resident == before + 1
+    _assert_close(out, k1.roi_pool_resident_reference(f32, *args, 4),
+                  torch.float32)
 
 
 def test_k5_k6_raise_instead_of_falling_back(cuda, monkeypatch):

@@ -300,6 +300,52 @@ def test_resident_section_bytes_and_c_split_rule(monkeypatch):
         port.resident_c_split(buffers(torch.bfloat16), 3)
 
 
+def _crowns_1024(rng, b, n, img=1024.0):
+    """(b, n) crown-like boxes over a 1024 px image, as ``chip_smoke.py``'s
+    kernel phase draws them: 16-200 px, aspect up to 2."""
+    c = rng.uniform(0, img, (b, n, 2))
+    s = rng.uniform(16, 200, (b, n, 1))
+    asp = rng.uniform(0.5, 2.0, (b, n, 1))
+    wh = s * [1.0, 1.0] * (asp ** [0.5, -0.5])
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], axis=-1)
+    return np.clip(boxes, 0, img).astype(np.float32)
+
+
+@pytest.mark.parametrize("resolution", [7, 14])
+def test_resident_hats_are_the_level_hats_shifted_by_the_clamp(resolution):
+    """What makes bf16 K6 give K1's bits: for every box, the hats that
+    ``resident_pool_inputs`` folds for its clamped origin, shifted back by
+    the clamp, equal ``level_pool_inputs``' hats bit for bit, and none of
+    their weight lies in the columns the shift brings in.  On crown boxes
+    at 1024^2 (two images of 256), where the clamp moves windows on both
+    axes."""
+    b, n = 2, 256
+    boxes = torch.from_numpy(_crowns_1024(np.random.default_rng(resolution),
+                                          b, n))
+    fmaps = [torch.zeros((b, 1024 // s, 1024 // s, 8)) for s in STRIDES]
+    p = port.level_pool_inputs(fmaps, boxes, resolution, STRIDES)
+    r = port.resident_pool_inputs(p, resolution, 2, n_images=b, chunk=1,
+                                  c_split=1)
+    assert r.pad_per == 0 and torch.equal(r.meta[:, 0], p.meta[:, 0])
+    src_h = torch.tensor([f.shape[0] // b for f in p.kpadded])
+    image = torch.arange(b * n) // n
+    level = p.meta[:, 0].long()
+    dy = (p.meta[:, 1] - image * src_h[level] - r.meta[:, 1]).long()
+    dx = (p.meta[:, 2] - r.meta[:, 2]).long()
+    assert (dy >= 0).all() and (dx >= 0).all()
+    assert int((dy > 0).sum()) > 10 and int((dx > 0).sum()) > 10
+    for resident, per_level, shift in ((r.ay, p.ay, dy), (r.ax, p.ax, dx)):
+        width = resident.shape[-1]
+        col = torch.arange(width)[None, :] + shift[:, None]
+        back = torch.gather(resident, 2, col.clamp(max=width - 1)[:, None, :]
+                            .expand_as(resident))
+        back = torch.where((col < width)[:, None, :], back, 0.0)
+        assert torch.equal(back, per_level)
+        brought_in = (torch.arange(width)[None, :] < shift[:, None])
+        assert not resident[brought_in[:, None, :].expand_as(resident)].any()
+    assert float(p.ay.abs().max()) > 0 and float(p.ax.abs().max()) > 0
+
+
 # --- pooler level -----------------------------------------------------------------
 
 # name -> (environment, strips in the boxes, expected per-image overflow)
@@ -321,6 +367,7 @@ POOLER_CASES = {
                             "TD_ROI_LARGE_FRAC": "0.5"}, True, [0, 0]),
     # bfloat16 features; no strip, so the float32 gather tail takes no box
     "flat_bf16": ({}, False, [0, 0]),
+    "resident_bf16": ({"TD_ROI_RESIDENT": "1"}, False, [0, 0]),
 }
 
 
@@ -340,7 +387,7 @@ def _force_split(monkeypatch, fmaps):
 def test_batched_pooler_layouts_match_jax(monkeypatch, case):
     """``multilevel_roi_align_batched`` under each layout and class setting
     against the JAX function under the same variables: features within 2e-5
-    (equal for the bfloat16 case), the (B, N) inexact mask equal, the
+    (equal for the bfloat16 cases), the (B, N) inexact mask equal, the
     per-image counts as ``tests/test_ops.py`` pins them."""
     from treedetection_tpu.ops.roi_align import (
         multilevel_roi_align_batched as jax_pool)
@@ -385,10 +432,9 @@ def test_batched_pooler_layouts_match_jax(monkeypatch, case):
 def test_layouts_agree_and_default_is_unchanged(monkeypatch, resolution):
     """The three layouts give the same features within 2e-5 and the same
     inexact mask on the same inputs (edge boxes: the resident clamp is
-    active, and 26 boxes per image pad to a chunk multiple at R=14); and the
-    default layout's output is bit-equal to the flat pooling written out
-    here from ``flat_pool_inputs`` and K1's plain version (one launch, then
-    the exact tail)."""
+    active); and the default layout's output is bit-equal to the flat
+    pooling written out here from ``flat_pool_inputs`` and K1's plain
+    version (one launch, then the exact tail)."""
     fmaps = _torch(_fmaps(70 + resolution))
     boxes = torch.from_numpy(_edge_boxes())
     boxes[:, 4:8] = torch.tensor([[0.0, 50, 256, 70]])    # four strips

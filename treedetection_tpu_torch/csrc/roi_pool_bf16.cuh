@@ -1,13 +1,14 @@
 // One box's pooling in bfloat16 on Hopper's tensor cores, shared by the flat
-// pooler (roi_pool_flat.cu, K1) and the per-level pooler (roi_pool_levels.cu,
-// K5):
+// pooler (roi_pool_flat.cu, K1), the per-level pooler (roi_pool_levels.cu,
+// K5) and the image-resident pooler (roi_pool_resident.cu, K6):
 //
 //     out = A_y . window . A_x^T,   window = base[row0 : row0+P, col0 : col0+P+8, c]
 //
-// for the kSlice channels from c0 on.  The two kernels differ only in where
+// for the kSlice channels from c0 on.  The three kernels differ only in where
 // `base` points (K1: the level-concatenated buffer; K5: the box's level
-// buffer) and how far it may be read; every instruction below is the same in
-// both, so on the same boxes, hats and cells they give the same bits.
+// buffer; K6: the image's section of it) and how far it may be read; every
+// instruction below is the same in all three, so on the same boxes, hats and
+// cells they give the same bits.
 // Rounding is the TPU kernels' (treedetection_tpu/ops/pallas/
 // roi_align_kernel.py): hats and the intermediate t = A_y . window rounded to
 // bf16, both contractions accumulated in fp32, the output rounded once.
@@ -41,9 +42,11 @@
 //     16-column group, with the channels on the M side and j on the N side,
 //     accumulated in registers across column groups; rounded once at the end
 //     and written through shared memory as 16-byte stores along C.
-//   * Grid (the kernels'): one block of 8 warps per (box, 32-channel slice),
-//     boxes fastest, so that one slice of the features (1/8 of them at
-//     C = 256) is L2's working set at a time.  About 63 KB (R = 7) or 72 KB
+//   * Grid (K1's and K5's): one block of 8 warps per (box, 32-channel
+//     slice), boxes fastest, so that one slice of the features (1/8 of them
+//     at C = 256) is L2's working set at a time.  K6 keeps its own
+//     image-ordered grid and calls this for a few boxes per block in turn,
+//     with a barrier between calls.  About 63 KB (R = 7) or 72 KB
 //     (R = 14) of shared memory and at most 128 registers a thread
 //     (__launch_bounds__(kBf16Threads, 2)): two blocks per SM at any span.
 //
@@ -184,8 +187,10 @@ __device__ __forceinline__ bool nonzero_bf16(float v) {
 // (row0, col0), and cells outside the buffer read as zeros.  `ay_box`
 // (R, patch) and `ax_box` (R, patch + 8) are the box's float32 hats,
 // `out_box` its (R, R, channels) output; `smem` holds bf16_smem_bytes<R>()
-// bytes, 16-byte aligned.  Every thread of a block of kBf16Threads calls it
-// once; `base` and C must keep every 8-channel vector 16-byte aligned, and
+// bytes, 16-byte aligned.  Every thread of a block of kBf16Threads calls it;
+// a block that calls it again for another box puts a barrier between the
+// calls (it writes its span before its first barrier and may return without
+// one).  `base` and C must keep every 8-channel vector 16-byte aligned, and
 // patch is at most kMaxPatch (the caller checks both).
 template <int R>
 __device__ __forceinline__ void pool_box_bf16(

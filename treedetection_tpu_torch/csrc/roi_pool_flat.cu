@@ -42,12 +42,12 @@ roi_pool_flat_kernel(const float* __restrict__ fcat,
   extern __shared__ float smem[];
   const int cpatch = patch + 8;
   const int box = blockIdx.x;
-  pool_box<float, R>(fcat, total_rows, width, width, channels,
-                     blockIdx.y * kCSlice, channels, rows[box], cols[box],
-                     ay + static_cast<size_t>(box) * R * patch,
-                     ax + static_cast<size_t>(box) * R * cpatch,
-                     out + static_cast<size_t>(box) * R * R * channels, patch,
-                     smem);
+  pool_box<R>(fcat, total_rows, width, width, channels,
+              blockIdx.y * kCSlice, channels, rows[box], cols[box],
+              ay + static_cast<size_t>(box) * R * patch,
+              ax + static_cast<size_t>(box) * R * cpatch,
+              out + static_cast<size_t>(box) * R * R * channels, patch,
+              smem);
 }
 
 template <int R>

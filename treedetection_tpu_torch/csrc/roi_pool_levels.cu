@@ -67,14 +67,14 @@ roi_pool_levels_kernel(const __grid_constant__ LevelBuffers bufs,
   const int cpatch = patch + 8;
   const int box = blockIdx.x;
   const int level = box_level(meta, box, n_levels);
-  pool_box<float, R>(static_cast<const float*>(bufs.base[level]),
-                     bufs.rows[level], bufs.width[level], bufs.width[level],
-                     channels, blockIdx.y * kCSlice, channels, meta[3 * box + 1],
-                     meta[3 * box + 2],
-                     ay + static_cast<size_t>(box) * R * patch,
-                     ax + static_cast<size_t>(box) * R * cpatch,
-                     out + static_cast<size_t>(box) * R * R * channels, patch,
-                     smem);
+  pool_box<R>(static_cast<const float*>(bufs.base[level]),
+              bufs.rows[level], bufs.width[level], bufs.width[level],
+              channels, blockIdx.y * kCSlice, channels, meta[3 * box + 1],
+              meta[3 * box + 2],
+              ay + static_cast<size_t>(box) * R * patch,
+              ax + static_cast<size_t>(box) * R * cpatch,
+              out + static_cast<size_t>(box) * R * R * channels, patch,
+              smem);
 }
 
 template <int R>
@@ -174,8 +174,8 @@ int td_roi_pool_levels(const void* const* bases, const int* rows,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Dynamic shared memory of one block of the bfloat16 kernels (K1's and K5's,
-// both pool_box_bf16) at this resolution, in bytes; 0 for another.
+// Dynamic shared memory of one block of the bfloat16 kernels (K1's, K5's and
+// K6's, all pool_box_bf16) at this resolution, in bytes; 0 for another.
 int td_roi_pool_bf16_smem_bytes(int resolution) {
   if (resolution == 7) return static_cast<int>(bf16_smem_bytes<7>());
   if (resolution == 14) return static_cast<int>(bf16_smem_bytes<14>());

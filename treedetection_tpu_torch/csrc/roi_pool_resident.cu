@@ -26,7 +26,7 @@
 // (image, C-block) start before the next one's: the same order as the
 // TPU kernel's grid (image, C-block, chunk).  A block serves one chunk of
 // its image's boxes for one 32-channel slice of its C-block, in a loop: per
-// box the two contraction phases of roi_pool_window.cuh, reading the window
+// box one call of the dtype's device function (below), reading the window
 // straight from the unpadded corner of the image's section with the channel
 // offset cb * c_blk.  The first box that touches a cell brings it in from
 // device memory; the image's other boxes find it in L2.
@@ -41,12 +41,30 @@
 // What bounds it: memory.  The bytes the function must move are the cells of
 // the sections that the clamped windows touch (each once), the hat matrices,
 // the indices and the output; this design reads the hat matrices once per
-// 32-channel slice on top of that.  A block's boxes run one after the other,
-// so a small chunk (1 or 2 boxes) keeps more loads in flight than a large
-// one.  Reads outside a section are zeros (the clamp keeps every window
-// inside it).  Padding boxes (zero hats, meta
-// 0) pool level 0 at the origin into zeros; the caller cuts them off.
+// 32-channel slice on top of that.  Reads outside a section are zeros (the
+// clamp keeps every window inside it).  Padding boxes (zero hats, meta 0)
+// pool level 0 at the origin into zeros; the caller cuts them off.
+//
+// float32 features take `pool_box` (roi_pool_window.cuh), the device function
+// of K1's and K5's float32 kernels, on the whole window: the three poolers
+// are bit-equal in float32.
+//
+// bfloat16 features (the production dtype) take roi_pool_resident_bf16_kernel:
+// this grid, and per box K1's device function `pool_box_bf16`
+// (roi_pool_bf16.cuh: the hats' span only, cp.async staging, mma.sync),
+// called with the image's section as the buffer, the section's unpadded rows
+// as its row bound and the buffer's width as its pitch and column bound.  A
+// box's hats, refolded for its clamped origin, are K1's shifted by the clamp,
+// so the span starts on the same cells of the image and every instruction
+// sees K1's operands: on the same boxes K6 gives K1's bits.  The clamp keeps
+// every window inside the section's unpadded corner (max(H_l, P),
+// max(W_l, P+8)), so the buffer width reads nothing past it.  A block's boxes
+// run one after the other: each call reduces its span and loads its hats
+// before its first copy is in flight, so few boxes per block keep more
+// loads in flight than many.  pool_box_bf16 bounds its 32-channel slice by C,
+// so the C-block must be a whole number of slices.
 
+#include "roi_pool_bf16.cuh"
 #include "roi_pool_window.cuh"
 
 namespace {
@@ -63,12 +81,30 @@ struct Sections {
   int sec_w[kMaxLevels];
 };
 
-template <typename T, int R>
+// the box's level, clamped: the wrapper checks the range, and the clamp
+// keeps a bad level from indexing outside the struct
+__device__ __forceinline__ int box_level(const int32_t* meta, size_t box,
+                                         int n_levels) {
+  return min(max(meta[3 * box], 0), n_levels - 1);
+}
+
+// the first cell of `image`'s section of a level buffer
+template <typename T>
+__device__ __forceinline__ const T* section(const Sections& secs, int level,
+                                            int image, int channels) {
+  return static_cast<const T*>(secs.base[level]) +
+         static_cast<size_t>(image) * secs.src_h[level] * secs.width[level] *
+             channels;
+}
+
+// --- float32: pool_box ---------------------------------------------------------
+
+template <int R>
 __global__ void __launch_bounds__(kThreads)
 roi_pool_resident_kernel(const __grid_constant__ Sections secs,
                          const int32_t* __restrict__ meta,
                          const float* __restrict__ ay,
-                         const float* __restrict__ ax, T* __restrict__ out,
+                         const float* __restrict__ ax, float* __restrict__ out,
                          int n_levels, int channels, int c_blk, int chunk,
                          int chunks_per_image, int patch) {
   extern __shared__ float smem[];
@@ -82,24 +118,22 @@ roi_pool_resident_kernel(const __grid_constant__ Sections secs,
   const size_t first = (static_cast<size_t>(image) * chunks_per_image + j) * chunk;
   for (int k = 0; k < chunk; ++k) {
     const size_t i = first + k;
-    const int level = min(max(meta[3 * i], 0), n_levels - 1);
-    const T* src = static_cast<const T*>(secs.base[level]) +
-                   static_cast<size_t>(image) * secs.src_h[level] *
-                       secs.width[level] * channels;
-    pool_box<T, R>(src, secs.sec_h[level], secs.sec_w[level], secs.width[level],
-                   channels, c0, c_end, meta[3 * i + 1], meta[3 * i + 2],
-                   ay + i * R * patch, ax + i * R * cpatch,
-                   out + i * R * R * channels, patch, smem);
+    const int level = box_level(meta, i, n_levels);
+    pool_box<R>(section<float>(secs, level, image, channels),
+                secs.sec_h[level], secs.sec_w[level], secs.width[level],
+                channels, c0, c_end, meta[3 * i + 1], meta[3 * i + 2],
+                ay + i * R * patch, ax + i * R * cpatch,
+                out + i * R * R * channels, patch, smem);
   }
 }
 
-template <typename T, int R>
-cudaError_t launch(const Sections& secs, const void* meta, const void* ay,
-                   const void* ax, void* out, int n_images, int n_per,
-                   int chunk, int c_split, int patch, int n_levels,
-                   int channels, cudaStream_t stream) {
+template <int R>
+cudaError_t launch_f32(const Sections& secs, const void* meta, const void* ay,
+                       const void* ax, void* out, int n_images, int n_per,
+                       int chunk, int c_split, int patch, int n_levels,
+                       int channels, cudaStream_t stream) {
   const size_t smem = smem_bytes<R>(patch);
-  auto kernel = roi_pool_resident_kernel<T, R>;
+  auto kernel = roi_pool_resident_kernel<R>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -109,8 +143,61 @@ cudaError_t launch(const Sections& secs, const void* meta, const void* ay,
   const dim3 grid(chunks_per_image * slices, c_split, n_images);
   kernel<<<grid, kThreads, smem, stream>>>(
       secs, static_cast<const int32_t*>(meta), static_cast<const float*>(ay),
-      static_cast<const float*>(ax), static_cast<T*>(out), n_levels, channels,
-      c_blk, chunk, chunks_per_image, patch);
+      static_cast<const float*>(ax), static_cast<float*>(out), n_levels,
+      channels, c_blk, chunk, chunks_per_image, patch);
+  return cudaGetLastError();
+}
+
+// --- bfloat16: pool_box_bf16 ------------------------------------------------------
+
+template <int R>
+__global__ void __launch_bounds__(kBf16Threads, 2)
+roi_pool_resident_bf16_kernel(const __grid_constant__ Sections secs,
+                              const int32_t* __restrict__ meta,
+                              const float* __restrict__ ay,
+                              const float* __restrict__ ax,
+                              bf16* __restrict__ out, int n_levels,
+                              int channels, int c_blk, int chunk,
+                              int chunks_per_image, int patch) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int slices = c_blk / kSlice;
+  const int image = blockIdx.z;
+  const int j = blockIdx.x / slices;
+  const int c0 = blockIdx.y * c_blk + (blockIdx.x % slices) * kSlice;
+  const size_t first = (static_cast<size_t>(image) * chunks_per_image + j) * chunk;
+  for (int k = 0; k < chunk; ++k) {
+    // pool_box_bf16 resets its span before its first barrier and may return
+    // without one (all-zero hats): the previous box must be done with both
+    if (k) __syncthreads();
+    const size_t i = first + k;
+    const int level = box_level(meta, i, n_levels);
+    pool_box_bf16<R>(section<bf16>(secs, level, image, channels),
+                     secs.sec_h[level], secs.width[level], channels, c0,
+                     meta[3 * i + 1], meta[3 * i + 2], ay + i * R * patch,
+                     ax + i * R * (patch + 8), out + i * R * R * channels,
+                     patch, smem_raw);
+  }
+}
+
+template <int R>
+cudaError_t launch_bf16(const Sections& secs, const void* meta, const void* ay,
+                        const void* ax, void* out, int n_images, int n_per,
+                        int chunk, int c_split, int patch, int n_levels,
+                        int channels, cudaStream_t stream) {
+  const int c_blk = channels / c_split;
+  if (!bf16_shape_ok(channels, patch) || c_blk % kSlice != 0)
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = bf16_smem_bytes<R>();
+  auto kernel = roi_pool_resident_bf16_kernel<R>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int chunks_per_image = n_per / chunk;
+  const dim3 grid(chunks_per_image * (c_blk / kSlice), c_split, n_images);
+  kernel<<<grid, kBf16Threads, smem, stream>>>(
+      secs, static_cast<const int32_t*>(meta), static_cast<const float*>(ay),
+      static_cast<const float*>(ax), static_cast<bf16*>(out), n_levels,
+      channels, c_blk, chunk, chunks_per_image, patch);
   return cudaGetLastError();
 }
 
@@ -123,7 +210,9 @@ extern "C" {
 // int32 on the device with N = n_images * n_per.  dtype: 0 = float32, 1 =
 // bfloat16.  resolution: 7 or 14.  Returns a cudaError_t (0 on success);
 // cudaErrorInvalidValue for an unsupported dtype, resolution, level count,
-// or a chunk / c_split / n_images that does not divide its dimension.
+// or a chunk / c_split / n_images that does not divide its dimension, and in
+// bfloat16 for C not a multiple of 8, a patch above 48 or a C-block
+// (C / c_split) that is not a multiple of 32.
 int td_roi_pool_resident(const void* const* bases, const int* rows,
                          const int* widths, int n_levels, const void* meta,
                          const void* ay, const void* ax, void* out,
@@ -148,8 +237,23 @@ int td_roi_pool_resident(const void* const* bases, const int* rows,
     secs.sec_w[l] = w > cpatch ? w : cpatch;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ROI_POOL_DISPATCH(launch, dtype, resolution, secs, meta, ay, ax, out, n_images,
-                    n_per, chunk, c_split, patch, n_levels, channels, s);
+  if (dtype == 0 && resolution == 7)
+    return static_cast<int>(launch_f32<7>(secs, meta, ay, ax, out, n_images,
+                                          n_per, chunk, c_split, patch,
+                                          n_levels, channels, s));
+  if (dtype == 0 && resolution == 14)
+    return static_cast<int>(launch_f32<14>(secs, meta, ay, ax, out, n_images,
+                                           n_per, chunk, c_split, patch,
+                                           n_levels, channels, s));
+  if (dtype == 1 && resolution == 7)
+    return static_cast<int>(launch_bf16<7>(secs, meta, ay, ax, out, n_images,
+                                           n_per, chunk, c_split, patch,
+                                           n_levels, channels, s));
+  if (dtype == 1 && resolution == 14)
+    return static_cast<int>(launch_bf16<14>(secs, meta, ay, ax, out, n_images,
+                                            n_per, chunk, c_split, patch,
+                                            n_levels, channels, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

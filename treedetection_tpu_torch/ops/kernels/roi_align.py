@@ -27,10 +27,10 @@ Column origins are multiples of 8 in all three, as in the TPU kernels.
 
 The sources (what bounds each kernel and its design are noted there) share
 two device functions: ``pool_box`` (``csrc/roi_pool_window.cuh``) pools a box
-in all three in float32 and in K6 in bfloat16; ``pool_box_bf16``
-(``csrc/roi_pool_bf16.cuh``: the hats' span, ``cp.async`` staging,
-``mma.sync``) pools a box in K1 and K5 in bfloat16.  So K1, K5 and K6 are
-bit-equal in float32, and K1 and K5 in bfloat16.  Each source is compiled
+in all three in float32; ``pool_box_bf16`` (``csrc/roi_pool_bf16.cuh``: the
+hats' span, ``cp.async`` staging, ``mma.sync``) pools a box in all three in
+bfloat16.  So K1, K5 and K6 are bit-equal on the same boxes in either dtype
+(K6's refolded hats are K1's shifted by its clamp).  Each source is compiled
 with nvcc for ``sm_90a`` at first use into the package's build directory
 (named by a hash that covers the headers it includes) and bound with
 ctypes.  For a CUDA tensor a wrapper launches its kernel or raises; only a
@@ -451,6 +451,11 @@ def roi_pool_resident(fmaps_padded: Sequence[torch.Tensor], meta: torch.Tensor,
     serves), which the caller reaches by padding each image's boxes with
     zero hats and ``meta`` 0.  ``c_split`` blocks of C / c_split channels
     bound the per-image working set (:func:`resident_section_bytes`).
+
+    On the card, float32 features take ``pool_box`` and bfloat16 features
+    ``pool_box_bf16``, as in :func:`roi_pool_patches`; in bfloat16 each
+    C-block must also be a whole number of 32-channel slices.  Other
+    bfloat16 inputs raise.
     """
     global launches_resident
     _check_resident(fmaps_padded, meta, ay, ax, resolution, patch, chunk,
@@ -462,8 +467,16 @@ def roi_pool_resident(fmaps_padded: Sequence[torch.Tensor], meta: torch.Tensor,
                                            c_split)
     _check_cuda(first, resolution)
     n, c = meta.shape[0], first.shape[-1]
+    if first.dtype == torch.bfloat16:
+        _check_bf16_kernel(fmaps_padded, patch)
+        if (c // c_split) % 32:
+            raise ValueError(f"the bfloat16 kernel needs C-blocks of a "
+                             f"multiple of 32 channels; got C={c}, "
+                             f"c_split={c_split}")
     out = torch.empty((n, resolution, resolution, c), dtype=first.dtype,
                       device=first.device)
+    if n == 0:
+        return out
     fn = _get_fn("roi_pool_resident")
     bases, rows, widths = _level_arrays(fmaps_padded)
     with torch.cuda.device(first.device):

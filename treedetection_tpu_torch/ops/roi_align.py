@@ -72,14 +72,15 @@ LARGE_FRAC_MASK = 0.25
 EXACT_FRAC_BOX = 0.05
 EXACT_FRAC_MASK = 0.08
 
-# Boxes one block of the resident pooler (K6) serves, box pool and mask pool;
-# each image's boxes are padded to a multiple of it.  Measured on an H100 at
-# the example geometry in bf16 (``chip_smoke.py``, kernel phase, chunks 1 to
-# 32): the time rises with the chunk from 4 on (a block's boxes run one
-# after the other, with no other box's loads in flight), and 2 and 1 were
-# the fastest for the box and the mask pool.
-RESIDENT_CHUNK_BOX = 2
-RESIDENT_CHUNK_MASK = 1
+# Boxes one block of the resident pooler (K6) serves, (box pool, mask pool)
+# by feature dtype; each image's boxes are padded to a multiple of it.  The
+# two dtypes run different device functions, and each keeps the fastest
+# chunk of its own sweep on an H100 at the example geometry (``chip_smoke.py``,
+# kernel phase, the kernel's device time at chunks 1 to 32).  bfloat16
+# (pool_box_bf16): the box pool is flat from 4 to 16 boxes per block and
+# slowest at 1, the mask pool flat from 1 to 4 and slower from 8 on.
+# float32 (pool_box): the time rises with the chunk from 1 on.
+RESIDENT_CHUNKS = {torch.bfloat16: (16, 2), torch.float32: (1, 1)}
 
 _logger = logging.getLogger(LOGGER_NAME)
 
@@ -499,7 +500,7 @@ def resident_pool_inputs(p: LevelPoolInputs, resolution: int,
                         sampling_ratio, CPATCH)
     meta = torch.stack([g.levels, r0, c0], dim=1).to(torch.int32)
     if chunk is None:
-        chunk = RESIDENT_CHUNK_BOX if resolution <= 8 else RESIDENT_CHUNK_MASK
+        chunk = RESIDENT_CHUNKS[p.kpadded[0].dtype][resolution > 8]
     chunk = max(min(chunk, n_per), 1)
     pad_per = (-n_per) % chunk
     if pad_per:
