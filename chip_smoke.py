@@ -21,11 +21,18 @@ build,kernel,predictor,model,pipeline,pipeline_two_model:
                R=14, 1024^2 input at batch 10, C=256), in float32 with TF32
                off and in bfloat16 (K6 also at 1 to 32 boxes per block,
                each bit-equal to K1; K1, K5 and K6 in bfloat16 timed in
-               turns); K2/K3/K4 (the pairwise dedupe,
-               containment and IoU masks) against their plain versions
-               with EXACT equality at one production row block (8192 rows x
-               32768 columns), at ragged and square shapes, and on
-               adversarial rows; medians of CUDA event timings, and the bound
+               turns); K2/K3 (the pairwise dedupe and containment
+               relations, one kernel body, bit-packed and as uint8 masks),
+               relation_pairs (their bit-packed blocks compacted to pairs)
+               and K4 (the IoU mask) against their plain versions with EXACT
+               equality (packed bytes, masks, and pair arrays against
+               np.nonzero, order included) at one production row block (8192
+               rows x 32768 columns), at ragged and square shapes, on
+               adversarial rows and with thresholds <= 0; at the production
+               block also the crown filter's whole per-block path as it was
+               (uint8 mask, host unpack and nonzero) against the new one
+               (bits, pairs on the card) on the same boxes; medians of CUDA
+               event timings, the kernels' device time, and the bounds
                computed from this run's inputs.
 3. predictor — the port's Predictor (R50-FPN, 1024^2, batch 10, 512
                proposals, bf16) on a synthetic 1000x1000 px RGBI GeoTIFF
@@ -41,9 +48,12 @@ build,kernel,predictor,model,pipeline,pipeline_two_model:
                ``TD_PAIRS_DEVICE=1``: a synthetic 1 km^2 sheet (5000x5000 px
                RGBI at 0.2 m, 400 tiles) with its 1 m nDSM, plus an adjacent
                200 m sheet so that a seam strip is cut, tiled and predicted;
-               checks the processed GPKG, the K1/K2/K3 launch counts, that
-               the host-grid branch gives the same crowns, and that a second
-               call predicts nothing.
+               checks the processed GPKG, the K1/K2/K3 and relation_pairs
+               launch counts, that the host-grid branch gives the same
+               crowns, then runs the device branch's postprocess once more on
+               the same stitched layers outside the Predictor's overlap (its
+               seconds beside the host grid's, the same crowns, the same
+               launch checks), and that a second call predicts nothing.
 6. pipeline_two_model — ``process_files`` in its two-model configuration
                (``urban_model``, ``forrest_model``, a forest outline over the
                west half of the sheet) with ``TD_ROI_FLAT=0`` on the same
@@ -86,15 +96,24 @@ PHASES = ("build", "kernel", "predictor", "model", "pipeline",
 ROI_LIBRARIES = ("roi_pool_flat", "roi_pool_levels", "roi_pool_resident")
 K6_CHUNKS = (1, 2, 4, 8, 16, 32)   # boxes per block timed in the kernel phase
 PAIRWISE_BLOCK_ROWS, PAIRWISE_COLS = 8192, 32768   # one production row block
-# float32 operations per (row, column) pair, counted from the arithmetic:
-# intersection 9 (2 min, 2 max, 2 sub, 2 clamp, 1 mul); IoU +5 (add, sub,
-# compare, divide, compare); containment +3 (compare, divide, compare);
-# dedupe = IoU + 7 (sub, abs, 2 max, divide, compare, and)
-PAIR_OPS = {"iou": 14, "containment": 12, "dedupe": 21}
+# float32 operations per (row, column) pair that the function needs, counted
+# from the arithmetic: every pair 4 (the comparisons that decide whether its
+# boxes overlap on both axes; where they do not, the intersection is 0 and so
+# is the quotient, with no arithmetic); a pair whose intersection is not 0
+# that intersection, 10 (2 min, 2 max, 2 sub, 2 clamp, 1 mul, and the test
+# inter != 0), and the rest of its formula, IoU 5 (add, sub, compare,
+# divide, compare) and containment 3 (compare, divide, compare); dedupe's
+# area term 7 (sub, abs, 2 max, divide, compare, and) where its IoU test
+# passes.  All at the float32 peak of PEAK_FLOPS.
+PAIR_OPS_EVERY = 4
+PAIR_OPS_MEETING = {"iou": 15, "containment": 13, "dedupe": 15}
+PAIR_OPS_AREA_TERM = 7
 PAIR_KERNELS = {   # mode -> (kernel number, wrapper, the TPU kernel's line)
-    "dedupe": ("K2", "pairwise_dedupe_mask", 64),
-    "containment": ("K3", "pairwise_containment_mask", 57),
+    "dedupe": ("K2", "pairwise_dedupe_bits", 64),
+    "containment": ("K3", "pairwise_containment_bits", 57),
     "iou": ("K4", "pairwise_iou_mask", 49)}
+MASK_WRAPPERS = {"dedupe": "pairwise_dedupe_mask",
+                 "containment": "pairwise_containment_mask"}
 
 
 def fail(msg: str) -> None:
@@ -263,10 +282,11 @@ def _timed_ms(fn, warmup=3, iters=20):
 
 
 def _device_ms(fn, kernel: str, iters=20):
-    """Device time per call of ``fn`` of the CUDA kernels whose name holds
-    ``kernel``, from torch.profiler over ``iters`` calls after one warm-up:
-    the kernel alone, without the wrapper's host work.  None when the
-    profiler saw no device time."""
+    """Device time per call of ``fn`` (a wrapper that launches one CUDA
+    kernel whose name holds ``kernel`` per call), from torch.profiler over
+    ``iters`` calls after one warm-up: the kernel alone, without the
+    wrapper's host work.  None ("not measured") unless the profiler
+    recorded all ``iters`` launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -275,10 +295,30 @@ def _device_ms(fn, kernel: str, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    seen = [e for e in prof.key_averages() if kernel in e.key]
+    if sum(e.count for e in seen) != iters:
+        return None
     total = sum(getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0))
-                for e in prof.key_averages() if kernel in e.key)
+                        getattr(e, "self_cuda_time_total", 0)) for e in seen)
     return total / 1e3 / iters if total else None
+
+
+def _back_to_back_ms(launch, iters=20):
+    """Device time per call of ``launch`` (the wrappers' own launchers into
+    buffers allocated once: no checks, no allocation, no synchronisation):
+    CUDA events around ``iters`` calls queued back to back after 3
+    warm-ups."""
+    import torch
+    for _ in range(3):
+        launch()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        launch()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
 
 
 def _synthetic_boxes(rng, b, n, img=1024.0):
@@ -614,13 +654,46 @@ def _adversarial_boxes():
     return boxes, areas
 
 
-def pair_bound(mode, r, n):
-    """Least time the card could take for an (r, n) mask: the bytes it must
-    move (both box arrays read once, the uint8 mask written once) over HBM
-    bandwidth, or its float32 operations over the CUDA-core peak."""
+def _huge_boxes(boxes, areas):
+    """The boxes with every 37th reaching past 2^126 in magnitude (finite):
+    the relation kernel's warps that hold one take the whole formula."""
+    boxes = boxes.copy()
+    boxes[::37, 0], boxes[::37, 2] = -3e38, 3e38
+    return boxes, areas
+
+
+def pair_work(mode, rows, cols, t0):
+    """What one (rows, cols) relation needs beyond the four comparisons of
+    every pair, from this run's boxes: (pairs whose intersection is not 0,
+    pairs whose IoU test passes; the second for dedupe only).  Counted by the
+    script with PyTorch on the card, 1024 rows at a time."""
+    import torch
+    from treedetection_tpu_torch.ops.boxes import box_iou_matrix
+    meeting = iou_hits = 0
+    cb = cols[:, :4]
+    for s in range(0, rows.shape[0], 1024):
+        rb = rows[s:s + 1024, :4]
+        lt = torch.maximum(rb[:, None, :2], cb[None, :, :2])
+        br = torch.minimum(rb[:, None, 2:], cb[None, :, 2:])
+        wh = torch.clamp(br - lt, min=0)
+        meeting += int(((wh[..., 0] * wh[..., 1]) != 0).sum())
+        if mode == "dedupe":
+            iou_hits += int((box_iou_matrix(rb, cb) > t0).sum())
+    return meeting, iou_hits
+
+
+def pair_bound(mode, r, n, meeting, iou_hits, form):
+    """Least time the card could take for an (r, n) relation: the bytes it
+    must move (both box arrays read once, the relation written once: r *
+    ceil(n/8) bytes bit-packed, r * n as a uint8 mask) over HBM bandwidth, or
+    the float32 operations it needs (``PAIR_OPS_*``: four comparisons for
+    every pair, the intersection and the rest only where the boxes meet)
+    over the CUDA-core peak."""
     width = 5 if mode == "dedupe" else 4
-    nbytes = 4 * width * (r + n) + r * n
-    ops = PAIR_OPS[mode] * r * n
+    out_bytes = r * ((n + 7) // 8) if form == "bits" else r * n
+    nbytes = 4 * width * (r + n) + out_bytes
+    ops = (PAIR_OPS_EVERY * r * n + PAIR_OPS_MEETING[mode] * meeting
+           + PAIR_OPS_AREA_TERM * iou_hits)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS["float32"] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -628,28 +701,71 @@ def pair_bound(mode, r, n):
             "bytes": nbytes, "flops": ops}
 
 
+def pairs_bound(r, n, p):
+    """relation_pairs' least time: the packed block read once, the (2, p)
+    int32 pairs written once (a popcount per word is far below the bytes)."""
+    nbytes = r * ((n + 7) // 8) + 8 * p
+    return {"bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes}
+
+
 def _pair_calls(pw, mode, b, a, rows, thr):
-    """-> (kernel call, plain call) for one mode; ``rows`` is None (square)
-    or a (start, stop) slice of the boxes."""
+    """-> {"uint8": (kernel call, plain call), "bits": (...)} for one mode
+    (no "bits" for iou); ``rows`` is None (square) or a (start, stop) slice
+    of the boxes."""
     import torch
     rb = None if rows is None else b[rows[0]:rows[1]].contiguous()
     ra = None if rows is None else a[rows[0]:rows[1]].contiguous()
     if mode == "iou":
-        return (lambda: pw.pairwise_iou_mask(b, thr[0], rows=rb),
-                lambda: pw.iou_mask_reference(b if rb is None else rb, b,
-                                              thr[0]))
+        return {"uint8": (
+            lambda: pw.pairwise_iou_mask(b, thr[0], rows=rb),
+            lambda: pw.iou_mask_reference(b if rb is None else rb, b,
+                                          thr[0]))}
     if mode == "containment":
         def plain():
             out = pw.containment_mask_reference(b if rb is None else rb, b,
                                                 thr[0])
             return out.fill_diagonal_(0) if rb is None else out
-        return (lambda: pw.pairwise_containment_mask(b, thr[0], rows=rb),
-                plain)
-    b5 = torch.cat([b, a[:, None]], dim=1)
-    a5 = b5 if rb is None else torch.cat([rb, ra[:, None]], dim=1)
-    return (lambda: pw.pairwise_dedupe_mask(b, a, thr[0], thr[1], rows=rb,
-                                            row_areas=ra),
-            lambda: pw.dedupe_mask_reference(a5, b5, thr[0], thr[1]))
+        mask = lambda: pw.pairwise_containment_mask(b, thr[0], rows=rb)
+        bits = lambda: pw.pairwise_containment_bits(b, thr[0], rows=rb)
+    else:
+        b5 = torch.cat([b, a[:, None]], dim=1)
+        a5 = b5 if rb is None else torch.cat([rb, ra[:, None]], dim=1)
+        plain = lambda: pw.dedupe_mask_reference(a5, b5, thr[0], thr[1])
+        mask = lambda: pw.pairwise_dedupe_mask(b, a, thr[0], thr[1], rows=rb,
+                                               row_areas=ra)
+        bits = lambda: pw.pairwise_dedupe_bits(b, a, thr[0], thr[1], rows=rb,
+                                               row_areas=ra)
+    return {"uint8": (mask, plain),
+            "bits": (bits, lambda: pw.pack_bits_rows(plain()))}
+
+
+def _host_pairs(mask, row_offset):
+    """np.nonzero of a uint8 mask on the host, rows shifted, the diagonal
+    left out: the crown filter's per-block host work before this port's
+    compaction kernel."""
+    ii, jj = np.nonzero(mask)
+    ii = ii + row_offset
+    keep = ii != jj
+    return ii[keep], jj[keep]
+
+
+def _old_block_path(pw, mask_call, row_offset):
+    """A row block as the crown filter streamed it before: the uint8 mask,
+    packed to bits on the card, copied to the host, unpacked, nonzero, the
+    diagonal dropped."""
+    m = mask_call()
+    packed = pw.pack_bits_rows(m).cpu().numpy()
+    return _host_pairs(np.unpackbits(packed, axis=1, count=m.shape[1]),
+                       row_offset)
+
+
+def _new_block_path(pw, bits_call, n_cols, row_offset):
+    """A row block as the crown filter streams it now: the bit-packed
+    relation, compacted on the card, only the pairs copied to the host."""
+    pairs = pw.relation_pairs(bits_call(), n_cols, row_offset, True)
+    pairs = pairs.cpu().numpy().astype(np.int64)
+    return pairs[0], pairs[1]
 
 
 def phase_kernel_pairwise(state):
@@ -669,39 +785,150 @@ def phase_kernel_pairwise(state):
          False),
         ("adversarial_t0.9", adv, (2, 9),
          {"iou": (0.9, 0), "containment": (0.9, 0), "dedupe": (0.9, 0.5)},
-         False))
+         False),
+        # every pair that does not meet is a hit: pins the kernel's
+        # zero-intersection branch
+        ("thresholds_le_0", small, None,
+         {"iou": (-0.1, 0), "containment": (0.0, 0), "dedupe": (-0.1, 0.3)},
+         False),
+        # boxes past 2^126: their warps take the whole formula
+        ("huge_coordinates", _huge_boxes(*small), (300, 700), None, False))
     default_thr = {"iou": (0.5, 0), "containment": (0.9, 0),
                    "dedupe": (0.5, 0.3)}
     summary = state.setdefault("pairwise", {})
     for name, (boxes, areas), rows, thr, timed in groups:
         b = torch.from_numpy(boxes).to(dev)
         a = torch.from_numpy(areas).to(dev)
+        start = 0 if rows is None else rows[0]
         for mode in ("dedupe", "containment", "iou"):
-            kernel, plain = _pair_calls(pw, mode, b, a, rows,
-                                        (thr or default_thr)[mode])
-            got, ref = kernel(), plain()
+            t = (thr or default_thr)[mode]
+            calls = _pair_calls(pw, mode, b, a, rows, t)
+            mask_k, mask_p = calls["uint8"]
+            got, ref = mask_k(), mask_p()
             torch.cuda.synchronize()
             if got.dtype != torch.uint8 or got.shape != ref.shape:
                 fail(f"kernel {mode} {name}: {got.dtype} {tuple(got.shape)}")
-            mismatches = int((got != ref).sum())
+            r, n = ref.shape
             row = {"phase": "kernel", "kernel": PAIR_KERNELS[mode][0],
-                   "mode": mode, "group": name, "shape": list(got.shape),
-                   "ones": int(ref.sum()), "mismatches": mismatches,
-                   "tolerance": "exact equality of the uint8 masks"}
-            del got, ref
+                   "mode": mode, "group": name, "thresholds": list(t),
+                   "shape": [r, n], "ones": int(ref.sum()),
+                   "mismatches": int((got != ref).sum()),
+                   "tolerance": "exact equality of the uint8 masks" + (
+                       ", of the packed bytes, and of the pair arrays"
+                       if "bits" in calls else "")}
+            del got
+            bits = None
+            if "bits" in calls:
+                bits_k, bits_p = calls["bits"]
+                bits, ref_bits = bits_k(), bits_p()
+                torch.cuda.synchronize()
+                if bits.shape != ref_bits.shape or bits.dtype != torch.uint8:
+                    fail(f"kernel {mode} {name}: bits {bits.dtype} "
+                         f"{tuple(bits.shape)}, expected "
+                         f"{tuple(ref_bits.shape)}")
+                row["bits_mismatches"] = int((bits != ref_bits).sum())
+                del ref_bits
+                # relation_pairs against np.nonzero of the plain mask
+                ii, jj = _host_pairs(ref.cpu().numpy(), start)
+                pairs = pw.relation_pairs(bits, n, start, True).cpu().numpy()
+                row["pairs"] = len(ii)
+                row["pairs_equal"] = bool(
+                    pairs.shape == (2, len(ii))
+                    and np.array_equal(pairs[0], ii)
+                    and np.array_equal(pairs[1], jj))
             if timed:
-                row["ms"] = _timed_ms(kernel)
-                row["plain_ms"] = _timed_ms(plain, 1, 3)
-                row.update(pair_bound(mode, *row["shape"]))
+                row.update(_time_pairwise(pw, mode, calls, b, a, rows, t,
+                                          bits, start, (r, n), row["pairs"]
+                                          if bits is not None else 0))
                 summary[mode] = row
+            del ref, bits
             emit(row)
-            if mismatches:
-                fail(f"kernel {mode} {name}: {mismatches} entries differ "
+            if row["mismatches"] or row.get("bits_mismatches"):
+                fail(f"kernel {mode} {name}: {row['mismatches']} mask entries "
+                     f"and {row.get('bits_mismatches')} packed bytes differ "
                      f"from the plain version")
+            if row.get("pairs_equal") is False:
+                fail(f"kernel {mode} {name}: relation_pairs differs from "
+                     f"np.nonzero of the plain mask")
+            if row.get("paths_equal") is False:
+                fail(f"kernel {mode} {name}: the old and the new per-block "
+                     f"paths give other pairs")
             if name != "ragged_77x1000" and row["ones"] == 0:
                 fail(f"kernel {mode} {name}: the relation is empty, the "
                      f"comparison is vacuous")
             torch.cuda.empty_cache()
+
+
+def _relation_launcher(pw, mode, form, b, a, rows, t):
+    """The relation kernel (K4: its own kernel) through the wrappers'
+    launcher ``_launch_into`` on the rows (start, stop) of the boxes
+    against all of them, into a buffer allocated once."""
+    import torch
+    rb, ra = b[rows[0]:rows[1]].contiguous(), a[rows[0]:rows[1]].contiguous()
+    rws, cols = pw._dedupe_operands(b, a, rb, ra) if mode == "dedupe" \
+        else (rb, b)
+    n = cols.shape[0]
+    width = pw._bits_pitch(n) if form == "bits" else n
+    out = torch.empty((rws.shape[0], width), dtype=torch.uint8,
+                      device=b.device)
+    return lambda: pw._launch_into(mode, rws, cols, out, t[0], t[1],
+                                   packed=form == "bits")
+
+
+def _pairs_launcher(pw, bits, n, start, n_pairs):
+    """The compaction of one packed block through relation_pairs' own
+    launchers (count, scan, write), without the read-back of the total
+    (known here) and the copy to the host."""
+    import torch
+    counts = torch.empty(bits.shape[0], dtype=torch.int64, device=bits.device)
+    ends = torch.empty_like(counts)
+    out = torch.empty((2, n_pairs), dtype=torch.int32, device=bits.device)
+
+    def launch():
+        pw._pair_ends_into(bits, n, start, True, counts, ends)
+        pw._pairs_into(bits, n, start, True, ends, out)
+    return launch
+
+
+def _time_pairwise(pw, mode, calls, b, a, rows, t, bits, start, shape,
+                   n_pairs):
+    """The production block's times: CUDA events around each wrapper call
+    (median of 20 after 3 warm-ups; plain versions and the old per-block
+    path 3 after 1), the kernels alone (``kernel_ms``: the wrappers'
+    launchers back to back), and the bounds."""
+    r, n = shape
+    rows = rows or (0, n)
+    meeting, iou_hits = pair_work(mode, b[rows[0]:rows[1]], b, t[0])
+    mask_k, mask_p = calls["uint8"]
+    out = {"meeting_pairs": meeting, "iou_test_hits": iou_hits,
+           "uint8": {"ms": _timed_ms(mask_k),
+                     "plain_ms": _timed_ms(mask_p, 1, 3),
+                     "kernel_ms": _back_to_back_ms(_relation_launcher(
+                         pw, mode, "uint8", b, a, rows, t)),
+                     **pair_bound(mode, r, n, meeting, iou_hits, "uint8")}}
+    if bits is None:
+        out.update(out["uint8"])
+        return out
+    bits_k, bits_p = calls["bits"]
+    out.update({"ms": _timed_ms(bits_k), "plain_ms": _timed_ms(bits_p, 1, 3),
+                "kernel_ms": _back_to_back_ms(_relation_launcher(
+                    pw, mode, "bits", b, a, rows, t)),
+                **pair_bound(mode, r, n, meeting, iou_hits, "bits")})
+    out["relation_pairs"] = {
+        "ms": _timed_ms(lambda: pw.relation_pairs(bits, n, start, True)),
+        "plain_ms": _timed_ms(
+            lambda: pw.relation_pairs_reference(bits, n, start, True), 1, 3),
+        "kernel_ms": _back_to_back_ms(_pairs_launcher(pw, bits, n, start,
+                                                      n_pairs)),
+        **pairs_bound(r, n, n_pairs)}
+    old = lambda: _old_block_path(pw, mask_k, start)
+    new = lambda: _new_block_path(pw, bits_k, n, start)
+    (oi, oj), (ni, nj) = old(), new()
+    out["paths_equal"] = bool(np.array_equal(oi, ni)
+                              and np.array_equal(oj, nj))
+    out["block_path"] = {"old_ms": _timed_ms(old, 1, 3),
+                         "new_ms": _timed_ms(new)}
+    return out
 
 
 # --- phase 3: the Predictor at full width ------------------------------------
@@ -1083,6 +1310,24 @@ def _crown_multiset(gpkg_path):
     return sorted(rows), props, srs
 
 
+def _check_pair_launches(phase, launches, pair_calls):
+    """K2 and K3 launched once per row block of the crown counts in
+    ``pair_calls``, and relation_pairs once per block of either."""
+    from treedetection_tpu_torch import postprocessing
+    expected = {"dedupe": 0, "containment": 0}
+    for kind, n, blocks in pair_calls:
+        if blocks != math.ceil(n / postprocessing.PAIRWISE_BLOCK):
+            fail(f"{phase}: {kind} call on {n} crowns ran {blocks} blocks")
+        expected[kind] += blocks
+    if launches["dedupe"] != expected["dedupe"] or launches["dedupe"] == 0 \
+            or launches["containment"] != expected["containment"] \
+            or launches["containment"] == 0 or launches["pairs"] != \
+            expected["dedupe"] + expected["containment"]:
+        fail(f"{phase}: K2/K3/pairs launches {launches} but the crown "
+             f"counts {pair_calls} need {expected} and one compaction per "
+             f"block")
+
+
 def phase_pipeline(state, workdir: Path):
     import torch
     from treedetection_tpu_torch import detection, postprocessing
@@ -1146,11 +1391,6 @@ def phase_pipeline(state, workdir: Path):
             if set(prop) != set(PROCESSED_PROPERTIES):
                 fail(f"pipeline: properties {sorted(prop)} in {p}")
         written[Path(p).name] = len(rows)
-    expected = {"dedupe": 0, "containment": 0}
-    for kind, n, blocks in pair_calls:
-        if blocks != math.ceil(n / postprocessing.PAIRWISE_BLOCK):
-            fail(f"pipeline: {kind} call on {n} crowns ran {blocks} blocks")
-        expected[kind] += blocks
     pred = config.get("_predictor_cache", {}).get(str(NPZ))
     row = {"phase": "pipeline", "config": "R50-FPN, 1024^2, batch 10, 512 "
            "proposals, bf16, TD_PAIRS_DEVICE=1",
@@ -1180,11 +1420,7 @@ def phase_pipeline(state, workdir: Path):
     if launches["k1"] != 2 * batches or launches["k5"] or launches["k6"]:
         fail(f"pipeline: ROI launches {launches} for {batches} batches in "
              f"the default layout (expected K1 twice per batch, no other)")
-    if launches["dedupe"] != expected["dedupe"] or launches["dedupe"] == 0 \
-            or launches["containment"] != expected["containment"] \
-            or launches["containment"] == 0:
-        fail(f"pipeline: K2/K3 launches {launches} but the crown counts "
-             f"{pair_calls} need {expected}")
+    _check_pair_launches("pipeline", launches, pair_calls)
     state["pipeline"] = row
 
     # (1) the host-grid branch on the same stitched layers
@@ -1213,6 +1449,37 @@ def phase_pipeline(state, workdir: Path):
           "postprocess_phase_s": dict(postprocessing.LAST_POSTPROCESS_STATS)})
     if sorted(same) != sorted(written) or not all(same.values()):
         fail(f"pipeline: device-branch and host-grid crowns differ: {same}")
+
+    # (1b) the device branch again on the same stitched layers, outside the
+    # Predictor's overlap: its postprocess seconds compare with the host
+    # grid's like for like
+    os.environ["TD_PAIRS_DEVICE"] = "1"
+    postprocessing.LAST_POSTPROCESS_STATS.clear()
+    postprocessing.PAIR_KERNEL_CALLS.clear()
+    for mode in k234.launches:
+        k234.launches[mode] = 0
+    t0 = time.time()
+    dev_outputs = postprocessing.process_files_in_directory(
+        config, str(out / "predictions"), images, heights,
+        out_dir=str(root / "out_devicebranch"))
+    torch.cuda.synchronize()
+    dev_s = time.time() - t0
+    del os.environ["TD_PAIRS_DEVICE"]
+    dev_launches = dict(k234.launches)
+    dev_calls = list(postprocessing.PAIR_KERNEL_CALLS)
+    dev_same = {Path(p).name: _crown_multiset(p)[0]
+                == _crown_multiset(root / "out_hostgrid" / Path(p).name)[0]
+                for p in dev_outputs}
+    state["pipeline_devicebranch"] = {
+        "phase": "pipeline_devicebranch", "seconds": dev_s,
+        "hostgrid_seconds": grid_s, "same_crowns_as_hostgrid": dev_same,
+        "pair_kernel_calls": dev_calls, "launches": dev_launches,
+        "postprocess_phase_s": dict(postprocessing.LAST_POSTPROCESS_STATS)}
+    emit(state["pipeline_devicebranch"])
+    if sorted(dev_same) != sorted(written) or not all(dev_same.values()):
+        fail(f"pipeline: the device branch's second pass and the host grid "
+             f"give other crowns: {dev_same}")
+    _check_pair_launches("pipeline_devicebranch", dev_launches, dev_calls)
 
     # (2) a second call on the finished output predicts nothing
     os.environ["TD_PAIRS_DEVICE"] = "1"
@@ -1492,28 +1759,58 @@ def kernels_line(state):
         kernels[-1][f"ms_by_chunk_{suffix}"] = {
             pool: v for (pool, d), v in roi["k6_by_chunk"].items()
             if d == dname}
+    dev_branch = state["pipeline_devicebranch"]["launches"]
+    source = "treedetection_tpu_torch/csrc/pairwise_boxes.cu"
     for mode, (number, wrapper, line) in PAIR_KERNELS.items():
         r = state["pairwise"][mode]
-        kernels.append({
-            "name": wrapper,
-            "number": number,
-            "route": "cuda",
-            "source": "treedetection_tpu_torch/csrc/pairwise_boxes.cu",
+        entry = {
+            "name": wrapper, "number": number, "route": "cuda",
+            "source": source,
             "replaces": f"treedetection_tpu/ops/pallas/iou_kernel.py:{line}",
             "launches": pipe["launches"][mode],
-            "on_pipeline_path": mode != "iou",
-            "max_abs_err": 0.0 if r["mismatches"] == 0 else 1.0,
+            "launches_by_path": {"pipeline": pipe["launches"][mode],
+                                 "pipeline_devicebranch": dev_branch[mode]},
+            "max_abs_err": 0.0 if r["mismatches"] == 0
+            and not r.get("bits_mismatches") else 1.0,
             "mismatches": r["mismatches"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "kernel_ms": r["kernel_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None,
-            "library_note": NO_LIBRARY,
+            "library_ms": None, "library_note": NO_LIBRARY,
             "per_call_of": f"one row block, {r['shape'][0]} rows x "
-                           f"{r['shape'][1]} columns, float32 in, uint8 out",
-            **({} if mode != "iou" else {"note": (
-                "no caller in either package: launched only by the kernel "
-                "phase, where it is held against its plain version")}),
-        })
+                           f"{r['shape'][1]} columns, float32 in, "
+                           + ("uint8 mask out" if mode == "iou" else
+                              "the relation bit-packed out")}
+        if mode == "iou":
+            entry["note"] = ("no caller in either package: launched only by "
+                             "the kernel phase, where it is held against "
+                             "its plain version")
+        else:
+            entry["bits_mismatches"] = r["bits_mismatches"]
+            entry["uint8_form"] = dict(r["uint8"], name=MASK_WRAPPERS[mode])
+            entry["block_path"] = dict(r["block_path"],
+                                       paths_equal=r["paths_equal"])
+        kernels.append(entry)
+    pairs = {mode: state["pairwise"][mode]["relation_pairs"]
+             for mode in ("dedupe", "containment")}
+    kernels.append({
+        "name": "relation_pairs", "number": "K2/K3 compaction",
+        "route": "cuda", "source": source,
+        "replaces": "treedetection_tpu/postprocessing.py:234",
+        "replaces_note": "no TPU kernel: the JAX package unpacks each row "
+                         "block on the host and takes np.nonzero",
+        "launches": pipe["launches"]["pairs"],
+        "launches_by_path": {"pipeline": pipe["launches"]["pairs"],
+                             "pipeline_devicebranch": dev_branch["pairs"]},
+        "max_abs_err": 0.0 if all(state["pairwise"][m]["pairs_equal"]
+                                  for m in pairs) else 1.0,
+        "ms": pairs["dedupe"]["ms"], "plain_ms": pairs["dedupe"]["plain_ms"],
+        "kernel_ms": pairs["dedupe"]["kernel_ms"],
+        "bound_ms": pairs["dedupe"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "library_note": NO_LIBRARY,
+        "per_call_of": "K2's production row block (8192 x 32768, bit-packed) "
+                       "to its pairs",
+        "by_mode": pairs})
     return {"kernels": kernels}
 
 

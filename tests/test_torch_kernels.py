@@ -554,3 +554,177 @@ def test_pairwise_kernels_raise_instead_of_falling_back(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="building pairwise_boxes failed"):
         k234.pairwise_iou_mask(b, 0.5)
     assert k234.launches == before
+
+
+def _plain_mask(mode, boxes, areas, rows, thr):
+    """The plain uint8 relation of K2 / K3 on the rows (start, stop) or the
+    square case."""
+    rb = boxes if rows is None else boxes[rows[0]:rows[1]]
+    if mode == "containment":
+        ref = k234.containment_mask_reference(rb, boxes, thr[0])
+        return ref.fill_diagonal_(0) if rows is None else ref
+    b5 = torch.cat([boxes, areas[:, None]], dim=1)
+    a5 = b5 if rows is None else b5[rows[0]:rows[1]]
+    return k234.dedupe_mask_reference(a5, b5, thr[0], thr[1])
+
+
+def _bits_call(mode, b, a, rows, thr):
+    rb = None if rows is None else b[rows[0]:rows[1]].contiguous()
+    if mode == "containment":
+        return k234.pairwise_containment_bits(b, thr[0], rows=rb)
+    ra = None if rows is None else a[rows[0]:rows[1]].contiguous()
+    return k234.pairwise_dedupe_bits(b, a, thr[0], thr[1], rows=rb,
+                                     row_areas=ra)
+
+
+PAIR_THRESHOLDS = {("containment", "default"): (0.9, 0.0),
+                   ("containment", "le_0"): (0.0, 0.0),
+                   ("dedupe", "default"): (0.5, 0.3),
+                   ("dedupe", "le_0"): (-0.1, 0.3)}
+
+
+@pytest.mark.parametrize("mode", ["dedupe", "containment"])
+@pytest.mark.parametrize("thr_name", ["default", "le_0"])
+@pytest.mark.parametrize("n,rows", [(1000, None), (1000, (400, 477)),
+                                    (1, None), (4099, (0, 4099)),
+                                    (2050, (33, 1061))])
+def test_pairwise_bits_and_pairs_equal_plain_versions(cuda, mode, thr_name,
+                                                      n, rows):
+    """The bit-packed relation kernel: the packed bytes EQUAL
+    pack_bits_rows of the plain mask, zero past N up to the kernel's pitch
+    (N = 1000, 4099 and 2050 leave padded bytes); relation_pairs EQUALS
+    np.nonzero of the plain mask (row offset added, diagonal dropped) as
+    whole arrays, order included.  Thresholds <= 0 make every pair that does
+    not meet a hit."""
+    thr = PAIR_THRESHOLDS[(mode, thr_name)]
+    boxes, areas = _crown_boxes(n)
+    b, a = boxes.to(cuda), areas.to(cuda)
+    before = dict(k234.launches)
+    got = _bits_call(mode, b, a, rows, thr)
+    torch.cuda.synchronize()
+    assert k234.launches[mode] == before[mode] + 1
+    ref = _plain_mask(mode, boxes, areas, rows, thr)
+    nbytes = (n + 7) // 8
+    assert got.dtype == torch.uint8 and got.shape == (ref.shape[0], nbytes)
+    assert torch.equal(got.cpu(), k234.pack_bits_rows(ref))
+    pitch = got.stride(0)
+    assert pitch % 16 == 0 and pitch >= nbytes
+    padded = got.as_strided((got.shape[0], pitch), (pitch, 1))
+    assert not padded[:, nbytes:].any()
+    start = 0 if rows is None else rows[0]
+    pairs = k234.relation_pairs(got, n, start, True)
+    torch.cuda.synchronize()
+    assert k234.launches["pairs"] == before["pairs"] + 1
+    ii, jj = np.nonzero(ref.numpy())
+    ii = ii + start
+    keep = ii != jj
+    assert pairs.dtype == torch.int32
+    np.testing.assert_array_equal(pairs.cpu().numpy(),
+                                  np.stack([ii[keep], jj[keep]]))
+    # the plain version on the same card tensor: the same arrays
+    assert torch.equal(
+        k234.relation_pairs_reference(got, n, start, True).cpu(),
+        pairs.cpu())
+    # a block whose rows are not word-readable in place (a tight copy:
+    # ceil(N/8) % 4 != 0 for every N here) is refused, not copied
+    assert nbytes % 4 != 0
+    tight = torch.empty(got.shape, dtype=torch.uint8, device=cuda).copy_(got)
+    before = k234.launches["pairs"]
+    with pytest.raises(ValueError, match="4-byte words"):
+        k234.relation_pairs(tight, n, start, True)
+    assert k234.launches["pairs"] == before
+    # without the diagonal rule
+    kept_all = k234.relation_pairs(got, n, start, False).cpu().numpy()
+    np.testing.assert_array_equal(kept_all, np.stack([ii, jj]))
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 4099])
+@pytest.mark.parametrize("fill", ["empty", "all_ones", "random"])
+def test_relation_pairs_on_bits_made_by_hand(cuda, n, fill):
+    """The compaction kernels on packed blocks made with numpy: an empty
+    relation (the count kernel only), an all-ones one, a random one; N % 8
+    and N % 32 != 0; rows offset so that the diagonal falls inside."""
+    rng = np.random.default_rng(n)
+    m = {"empty": np.zeros((70, n), np.uint8),
+         "all_ones": np.ones((70, n), np.uint8),
+         "random": (rng.random((70, n)) < 0.2).astype(np.uint8)}[fill]
+    # at the kernel's pitch, as the bit-packed wrappers lay their blocks out
+    nbytes = (n + 7) // 8
+    padded = torch.zeros((70, k234._bits_pitch(n)), dtype=torch.uint8)
+    padded[:, :nbytes] = torch.from_numpy(np.packbits(m, axis=1))
+    bits = padded.to(cuda)[:, :nbytes]
+    before = k234.launches["pairs"]
+    got = k234.relation_pairs(bits, n, row_offset=3, drop_diagonal=True)
+    torch.cuda.synchronize()
+    assert k234.launches["pairs"] == before + 1
+    ii, jj = np.nonzero(m)
+    ii = ii + 3
+    keep = ii != jj
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  np.stack([ii[keep], jj[keep]]))
+
+
+def test_pairwise_bits_raise_instead_of_falling_back(cuda, monkeypatch):
+    boxes, areas = _crown_boxes(64)
+    b, a = boxes.to(cuda), areas.to(cuda)
+    with pytest.raises(ValueError, match="is on cpu"):
+        k234.pairwise_containment_bits(b, 0.9, rows=boxes)
+    with pytest.raises(ValueError, match="is on cpu"):
+        k234.pairwise_dedupe_bits(b, a, 0.5, rows=boxes[:3],
+                                  row_areas=areas[:3])
+    with pytest.raises(TypeError, match="float32"):
+        k234.pairwise_dedupe_bits(b.double(), a, 0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        k234.pairwise_containment_bits(b, 0.9, rows=b.repeat(1, 2)[:, ::2])
+    with pytest.raises(TypeError, match="uint8"):
+        k234.relation_pairs(torch.zeros((4, 8), dtype=torch.int32,
+                                        device=cuda), 64)
+    with pytest.raises(ValueError, match="bytes per row"):
+        k234.relation_pairs(torch.zeros((4, 7), dtype=torch.uint8,
+                                        device=cuda), 64)
+    # the rows and the boxes must share a device before any launch
+    with pytest.raises(ValueError, match="rows are on"):
+        k234._launch_bits("containment", boxes, b, 0.9, 0.0, False)
+    with pytest.raises(ValueError, match="rows are on"):
+        k234._launch("dedupe", b.cpu(), b, 0.5, 0.3)
+    # empty blocks return without a launch
+    before = dict(k234.launches)
+    assert k234.pairwise_containment_bits(b, 0.9, rows=b[:0]).shape == (0, 8)
+    assert k234.pairwise_dedupe_bits(b[:0], a[:0], 0.5).shape == (0, 0)
+    assert k234.relation_pairs(torch.zeros((0, 8), dtype=torch.uint8,
+                                           device=cuda), 64).shape == (2, 0)
+    assert k234.launches == before
+    # kernels that cannot be built raise; the plain versions are not taken
+    bits = k234.pairwise_containment_bits(b, 0.9)
+    before = dict(k234.launches)
+    monkeypatch.setattr(k234, "_lib", None)
+    monkeypatch.setattr(k234, "NVCC_FLAGS", ["--no-such-flag"])
+    with pytest.raises(RuntimeError, match="building pairwise_boxes failed"):
+        k234.pairwise_dedupe_bits(b, a, 0.5)
+    with pytest.raises(RuntimeError, match="building pairwise_boxes failed"):
+        k234.relation_pairs(bits, 64)
+    assert k234.launches == before
+
+
+@pytest.mark.parametrize("mode", ["dedupe", "containment"])
+@pytest.mark.parametrize("thr_name", ["default", "le_0"])
+def test_pairwise_relation_kernel_on_huge_coordinates(cuda, mode, thr_name):
+    """Boxes reaching past 2^126 (finite) send their warps down the whole
+    formula for every pair; both forms still EQUAL the plain version."""
+    thr = PAIR_THRESHOLDS[(mode, thr_name)]
+    boxes, areas = _crown_boxes(700, seed=4)
+    boxes[::37, 0], boxes[::37, 2] = -3e38, 3e38
+    boxes[5, 1], boxes[5, 3] = -1e38, 2e38
+    b, a = boxes.to(cuda), areas.to(cuda)
+    for rows in (None, (100, 300)):
+        ref = _plain_mask(mode, boxes, areas, rows, thr)
+        got = _bits_call(mode, b, a, rows, thr)
+        assert torch.equal(got.cpu(), k234.pack_bits_rows(ref))
+        rb = None if rows is None else b[rows[0]:rows[1]].contiguous()
+        if mode == "containment":
+            mask = k234.pairwise_containment_mask(b, thr[0], rows=rb)
+        else:
+            ra = None if rows is None else a[rows[0]:rows[1]].contiguous()
+            mask = k234.pairwise_dedupe_mask(b, a, thr[0], thr[1], rows=rb,
+                                             row_areas=ra)
+        assert torch.equal(mask.cpu(), ref)

@@ -333,3 +333,23 @@ def test_downscale_matches_jax():
     assert ours.shape == theirs.shape == (10, 14)
     np.testing.assert_allclose(ours, theirs, rtol=1e-5, atol=1e-5)
     assert tuple(t_ours) == tuple(t_theirs)
+
+
+@pytest.mark.parametrize("kind", ["dedupe", "containment"])
+def test_device_branch_arrays_equal_jax(monkeypatch, kind):
+    """The device branch (bit-packed relation, then relation_pairs, through
+    the plain versions on the CPU) returns the JAX package's device-branch
+    arrays element for element: the same pairs in the same row-major order,
+    as int64."""
+    import torch
+    monkeypatch.setenv("TD_PAIRS_DEVICE", "1")
+    bounds, areas = _seeded_bounds(400, seed=5)
+    thr = 0.5 if kind == "dedupe" else 0.9
+    kw = {"areas": areas} if kind == "dedupe" else {}
+    ours = tp._sparse_relation_pairs(kind, bounds, thr, block=96,
+                                     device=torch.device("cpu"), **kw)
+    theirs = jp._sparse_relation_pairs(kind, bounds, thr, block=96, **kw)
+    assert len(ours[0]) > 20, "want a non-trivial relation"
+    for got, want in zip(ours, theirs):
+        assert got.dtype == np.int64
+        np.testing.assert_array_equal(got, want)

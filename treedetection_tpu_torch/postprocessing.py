@@ -12,8 +12,9 @@ gates at ``postprocessing.py:574-667``):
   ``compat_circle=True`` for output parity with the reference
 * the bbox IoU/area dedupe and the containment relation come as sparse pairs,
   by default from a uniform host grid; ``TD_PAIRS_DEVICE=1`` streams row
-  blocks through the pairwise kernels (``ops.kernels.pairwise``: CUDA on the
-  card, their plain versions on the CPU)
+  blocks through the pairwise kernels (``ops.kernels.pairwise``: each
+  block's relation bit-packed and compacted to its pairs by CUDA kernels on
+  the card, by their plain versions on the CPU)
 
 Device shapes are not padded to buckets (the JAX package pads for jit reuse);
 results on the real rows are the same.
@@ -39,8 +40,11 @@ import torch
 from treedetection_tpu_torch.config import select_device
 from treedetection_tpu_torch.geo import Affine, GeoTiff
 from treedetection_tpu_torch.ops.boxes import pairwise_intersection_over_area
+# (``_pack_bits_rows``: the plain packing's name here before it moved beside
+# the kernels' other plain versions)
 from treedetection_tpu_torch.ops.kernels.pairwise import (
-    pairwise_containment_mask, pairwise_dedupe_mask)
+    pack_bits_rows as _pack_bits_rows, pairwise_containment_bits,
+    pairwise_dedupe_bits, relation_pairs)
 from treedetection_tpu_torch.ops.stats import (polygon_raster_stats_batch,
                                          polygon_raster_stats_batch_patch,
                                          polygon_raster_stats_two,
@@ -73,9 +77,10 @@ def _phase(name: str, t0: float) -> float:
 
 # --- dedupe ----------------------------------------------------------------
 
-# Row-block size for streaming the pairwise relations: peak host memory is
-# bounded at PAIRWISE_BLOCK x N uint8 regardless of N, so county-scale files
-# (N ~ 10^5 crowns) never materialize the full N^2 matrix.
+# Row-block size for streaming the pairwise relations: a block's relation is
+# PAIRWISE_BLOCK x N bits on the device (bytes on the CPU) regardless of N,
+# so county-scale files (N ~ 10^5 crowns) never materialize the full N^2
+# matrix.
 PAIRWISE_BLOCK = 8192
 
 
@@ -213,35 +218,18 @@ def _sparse_relation_pairs(kind: str, bounds: np.ndarray, threshold: float,
     for s in range(0, n, block):
         e = min(s + block, n)
         if kind == "dedupe":
-            m = pairwise_dedupe_mask(b, a, threshold, area_threshold,
-                                     rows=b[s:e], row_areas=a[s:e])
+            bits = pairwise_dedupe_bits(b, a, threshold, area_threshold,
+                                        rows=b[s:e], row_areas=a[s:e])
         else:
-            m = pairwise_containment_mask(b, threshold, rows=b[s:e])
-        # fetch the relation BIT-PACKED: the dense block is rows x n bytes
-        # and crosses the device->host link; 8x less traffic, unpacked by
-        # numpy's C loop
-        packed = _pack_bits_rows(m).cpu().numpy()
-        bits = np.unpackbits(packed, axis=1, count=m.shape[1])
-        ii, jj = np.nonzero(bits)
-        ii = ii + s
-        keep = ii != jj
-        out_i.append(ii[keep])
-        out_j.append(jj[keep])
+            bits = pairwise_containment_bits(b, threshold, rows=b[s:e])
+        # the block's relation stays on the device bit-packed and is
+        # compacted there: only its pairs cross to the host
+        pairs = relation_pairs(bits, n, row_offset=s, drop_diagonal=True)
+        pairs = pairs.cpu().numpy().astype(np.int64)
+        out_i.append(pairs[0])
+        out_j.append(pairs[1])
     PAIR_KERNEL_CALLS.append((kind, n, len(out_i)))
     return np.concatenate(out_i), np.concatenate(out_j)
-
-
-def _pack_bits_rows(m: torch.Tensor) -> torch.Tensor:
-    """(R, N) 0/1 uint8 -> (R, ceil(N/8)) uint8, MSB-first (numpy
-    ``unpackbits`` order); the last byte is zero-filled when N % 8 != 0."""
-    r, nn = m.shape
-    if nn % 8:
-        m = torch.nn.functional.pad(m, (0, 8 - nn % 8))
-    lanes = m.reshape(r, -1, 8)
-    out = lanes[..., 0] << 7
-    for k in range(1, 8):
-        out = out | (lanes[..., k] << (7 - k))
-    return out
 
 
 def _areas_centroids_host(coords: np.ndarray
