@@ -5,7 +5,7 @@
 
 Phases (each prints JSON lines; any failure exits non-zero).  ``--phases``
 takes a comma-separated subset of
-build,kernel,predictor,model,pipeline,pipeline_two_model:
+build,kernel,predictor,model,pipeline,pipeline_multihost,pipeline_two_model:
 
 1. build     — compile the port's native libraries from the sources in the
                checkout (one nvcc per CUDA kernel source, g++ for the host
@@ -39,7 +39,11 @@ build,kernel,predictor,model,pipeline,pipeline_two_model:
                tiled into 16 tiles: a first pass, then a timed pass with the
                kernel launch counts reset just before it and read just after;
                then a pass under ``TD_ROI_FLAT=0`` (K5 in place of K1) that
-               must write the timed pass's tile files byte for byte.
+               must write the timed pass's tile files byte for byte; then a
+               Predictor over two device entries on the one card
+               (``predictor_split``: two replicas and streams, batches of 10
+               in chunks of 5), which must write a one-device batch-5
+               pass's tile files byte for byte.
 4. model     — one batch's real proposals and detections pooled through K1
                and the plain version, and the float32 forward's kept sets with
                each pooler (passed explicitly) and under each of the three
@@ -54,6 +58,11 @@ build,kernel,predictor,model,pipeline,pipeline_two_model:
                the same stitched layers outside the Predictor's overlap (its
                seconds beside the host grid's, the same crowns, the same
                launch checks), and that a second call predicts nothing.
+   pipeline_multihost — ``process_files`` on a copy of phase 5's sheets as
+               two hosts: two processes on the one card with torchrun's
+               environment, gloo between them, the kernels built by phase 1;
+               each host prints its stage seconds, launch counts and the
+               all-gathered totals, and the crowns must equal phase 5's.
 6. pipeline_two_model — ``process_files`` in its two-model configuration
                (``urban_model``, ``forrest_model``, a forest outline over the
                west half of the sheet) with ``TD_ROI_FLAT=0`` on the same
@@ -92,7 +101,7 @@ H100_BYTES_PER_S = 3.35e12          # HBM3, SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,     # CUDA cores, no tensor cores
               "bfloat16": 989e12}   # dense tensor cores
 PHASES = ("build", "kernel", "predictor", "model", "pipeline",
-          "pipeline_two_model")
+          "pipeline_multihost", "pipeline_two_model")
 ROI_LIBRARIES = ("roi_pool_flat", "roi_pool_levels", "roi_pool_resident")
 K6_CHUNKS = (1, 2, 4, 8, 16, 32)   # boxes per block timed in the kernel phase
 PAIRWISE_BLOCK_ROWS, PAIRWISE_COLS = 8192, 32768   # one production row block
@@ -219,10 +228,17 @@ def phase_build(state):
         for res, row in report.items():
             row["dynamic_smem_bytes"] = dynamic.get(res)
         bf16_ptxas[key] = report
+    relation = relation_ptxas(
+        results["pairwise_boxes"][0].with_suffix(".log").read_text())
     emit({"phase": "build", "seconds": round(time.time() - t0, 3),
           "each_s": {k: round(v[1], 3) for k, v in results.items()},
-          "ptxas": ptxas, "bf16_kernels": bf16_ptxas})
+          "ptxas": ptxas, "bf16_kernels": bf16_ptxas,
+          "relation_kernels": relation})
     state["bf16_ptxas"] = bf16_ptxas
+    state["relation_ptxas"] = relation
+    if sorted(relation) != sorted(RELATION_FORMS):
+        fail(f"build: relation_kernel instances {sorted(relation)}, "
+             f"expected {sorted(RELATION_FORMS)}")
     for key, report in bf16_ptxas.items():
         if sorted(report) != ["R14", "R7"] or any(
                 v["spill_stores"] or v["spill_loads"] or v["registers"] > 128
@@ -231,35 +247,63 @@ def phase_build(state):
                  f"R=7 and R=14, no spills, at most 128 registers)")
 
 
+def _ptxas_entries(log: str):
+    """``-Xptxas -v`` lines -> [(entry function, {registers, spill_stores,
+    spill_loads, static_smem_bytes})] in the log's order."""
+    import re
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            out.append((m.group(1), {"registers": None, "spill_stores": None,
+                                     "spill_loads": None,
+                                     "static_smem_bytes": 0}))
+            continue
+        if not out:
+            continue
+        row = out[-1][1]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            row["spill_stores"] = int(m.group(1))
+            row["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            row["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            row["static_smem_bytes"] = int(m.group(1))
+    return out
+
+
+# relation_kernel<MODE, FORM> instances that the pairwise library holds
+RELATION_FORMS = ("iou/uint8", "containment/uint8", "containment/bits",
+                  "dedupe/uint8", "dedupe/bits")
+
+
+def relation_ptxas(log: str):
+    """The relation kernel's instances in the pairwise library's ``-Xptxas
+    -v`` lines -> {"iou/uint8": {registers, spill_stores, ...}, ...}."""
+    import re
+    modes, forms = ("iou", "containment", "dedupe"), ("uint8", "bits")
+    out = {}
+    for name, row in _ptxas_entries(log):
+        m = re.search(r"relation_kernelILi(\d)ELi(\d)E", name)
+        if m:
+            out[f"{modes[int(m.group(1))]}/{forms[int(m.group(2))]}"] = row
+    return out
+
+
 def ptxas_report(log: str, kernel: str):
     """``-Xptxas -v`` lines of one kernel template -> {"R7": {registers,
     spill_stores, spill_loads, static_smem_bytes}, ...} by its resolution
     (``ILi7E``)."""
     import re
-    out, current = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-            r = re.search(r"ILi(\d+)E", name)
-            current = f"R{r.group(1)}" if kernel in name and r else None
-            if current:
-                out[current] = {"registers": None, "spill_stores": None,
-                                "spill_loads": None, "static_smem_bytes": 0}
-            continue
-        if current is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            out[current]["spill_stores"] = int(m.group(1))
-            out[current]["spill_loads"] = int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out[current]["registers"] = int(m.group(1))
-        m = re.search(r"(\d+) bytes smem", line)
-        if m:
-            out[current]["static_smem_bytes"] = int(m.group(1))
+    out = {}
+    for name, row in _ptxas_entries(log):
+        r = re.search(r"ILi(\d+)E", name)
+        if kernel in name and r:
+            out[f"R{r.group(1)}"] = row
     return out
 
 
@@ -775,11 +819,15 @@ def phase_kernel_pairwise(state):
     rng = np.random.default_rng(1)
     big = _crown_boxes(rng, PAIRWISE_COLS)
     small = _crown_boxes(rng, 1000)
+    # a column count that is a multiple of 16 but not of a block's 2048:
+    # the uint8 form's 16-byte stores up to a block's last full chunk
+    mid = _crown_boxes(np.random.default_rng(2), 1008)
     adv = _adversarial_boxes()
     groups = (   # name, (boxes, areas), rows, thresholds per mode, timed
         ("production_block", big, (0, PAIRWISE_BLOCK_ROWS), None, True),
         ("ragged_77x1000", small, (400, 477), None, False),
         ("square_1000", small, None, None, False),
+        ("ragged_130x1008", mid, (500, 630), None, False),
         ("adversarial_t1.0", adv, None,
          {"iou": (0.5, 0), "containment": (1.0, 0), "dedupe": (0.5, 1e-6)},
          False),
@@ -860,9 +908,9 @@ def phase_kernel_pairwise(state):
 
 
 def _relation_launcher(pw, mode, form, b, a, rows, t):
-    """The relation kernel (K4: its own kernel) through the wrappers'
-    launcher ``_launch_into`` on the rows (start, stop) of the boxes
-    against all of them, into a buffer allocated once."""
+    """The relation kernel through the wrappers' launcher ``_launch_into``
+    on the rows (start, stop) of the boxes against all of them, into a
+    buffer allocated once."""
     import torch
     rb, ra = b[rows[0]:rows[1]].contiguous(), a[rows[0]:rows[1]].contiguous()
     rws, cols = pw._dedupe_operands(b, a, rb, ra) if mode == "dedupe" \
@@ -1081,6 +1129,63 @@ def phase_predictor_levels(state, workdir: Path):
         fail(f"predictor_levels: the tile files differ from the default "
              f"pass's: {row}")
     state["predictor_levels"] = row
+
+
+def phase_predictor_split(state, workdir: Path):
+    """A Predictor over two device entries on the one card (``devices:
+    [cuda:0, cuda:0]``: two model replicas, two streams, each chunk
+    dispatched from a thread of its own) over the same 16 tiles: each batch
+    of 10 splits into two chunks of 5, and K1 runs twice per chunk.  Held
+    byte for byte against a one-device Predictor at batch 5, which runs the
+    same forwards on the same tiles: the card has one GPU, so this shows the
+    split path equal to the one-device path and says nothing of the speed
+    of two cards.  Against the batch-10 pass of the predictor phase the
+    tile files are only reported: the library convolutions and matrix
+    products may sum in another order at another batch size."""
+    import torch
+    from treedetection_tpu_torch import prediction
+    from treedetection_tpu_torch.ops.kernels import roi_align as k
+    split = prediction.Predictor(
+        predictor_config(workdir, devices=["cuda:0", "cuda:0"]), str(NPZ))
+    chunk = prediction.Predictor(
+        predictor_config(workdir, batch_size=split.batch_size // 2),
+        str(NPZ))
+    tif, meta = str(state["tif"]), state["meta"]
+    split(tif, meta, str(workdir / "pred_split_warm"))   # warm-up
+    chunk_dir = workdir / "pred_chunk"
+    chunk(tif, meta, str(chunk_dir))
+    out = workdir / "pred_split"
+    _reset_roi_launches(k)                    # just before the main path
+    t0 = time.time()
+    n_written = split(tif, meta, str(out))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _roi_launches(k)                 # just after
+    batches = math.ceil(n_written / split.batch_size)
+    mine, same_chunk = _tile_files(out), _tile_files(chunk_dir)
+    batch10 = _tile_files(state["pred_timed_dir"])
+    differ = sorted(n for n in same_chunk if mine.get(n) != same_chunk[n])
+    row = {"phase": "predictor_split",
+           "devices": [str(d) for d in split.devices],
+           "batch_size": split.batch_size, "tiles": n_written,
+           "batches": batches, "wall_s": wall, "launches": counts,
+           "tile_files": len(mine), "files_that_differ": differ,
+           "crowns": sum(len(json.loads(b)) for b in mine.values()),
+           "tolerance": f"byte-for-byte equal tile files to the one-device "
+                        f"Predictor at batch {chunk.batch_size}",
+           "files_that_differ_from_the_batch_10_pass": sorted(
+               n for n in batch10 if mine.get(n) != batch10[n]),
+           "crowns_of_the_batch_10_pass": sum(
+               len(json.loads(b)) for b in batch10.values())}
+    emit(row)
+    if counts != {"k1": 4 * batches, "k5": 0, "k6": 0}:
+        fail(f"predictor_split: ROI launches {counts} for {batches} batches "
+             f"over two devices (expected K1 twice per chunk, two chunks "
+             f"per batch)")
+    if sorted(mine) != sorted(same_chunk) or differ:
+        fail(f"predictor_split: the tile files differ from the one-device "
+             f"pass's at the chunk's batch size: {row}")
+    state["predictor_split"] = row
 
 
 def phase_profile(state, workdir: Path, out_dir: Path):
@@ -1382,9 +1487,10 @@ def phase_pipeline(state, workdir: Path):
     strips = sorted(p.name for p in (root / "rgb" / "merged").glob("*.tif"))
     stitched = {p.stem: len(read_gpkg(str(p))[0])
                 for p in sorted((out / "predictions").glob("*.gpkg"))}
-    written = {}
+    written, crowns = {}, {}
     for p in outputs:
         rows, props, srs = _crown_multiset(p)
+        crowns[Path(p).name] = rows
         if srs != 25832:
             fail(f"pipeline: {p} has SRS {srs}")
         for prop in props:
@@ -1422,6 +1528,8 @@ def phase_pipeline(state, workdir: Path):
              f"the default layout (expected K1 twice per batch, no other)")
     _check_pair_launches("pipeline", launches, pair_calls)
     state["pipeline"] = row
+    state["pipeline_inputs"] = root
+    state["pipeline_crowns"] = crowns
 
     # (1) the host-grid branch on the same stitched layers
     del os.environ["TD_PAIRS_DEVICE"]
@@ -1501,6 +1609,159 @@ def phase_pipeline(state, workdir: Path):
     for handler in list(config2["logger"].handlers):
         config2["logger"].removeHandler(handler)
         handler.close()
+
+
+# --- phase 5b: process_files as two hosts on the one card -------------------
+
+MULTIHOST_HOSTS = 2
+MULTIHOST_CHILD_TIMEOUT_S = 600
+
+
+def multihost_child(root: Path) -> None:
+    """One host of the ``pipeline_multihost`` phase (run as ``chip_smoke.py
+    --multihost-child ROOT`` with torchrun's environment): ``process_files``
+    on ROOT with ``TD_PAIRS_DEVICE=1``, its launch counts set to 0 just
+    before and read just after, then one JSON line of its seconds, totals,
+    outputs and counts."""
+    import torch
+    from treedetection_tpu_torch import detection, postprocessing, recoveries
+    from treedetection_tpu_torch.config import prepare_config
+    from treedetection_tpu_torch.ops.kernels import pairwise as k234
+    from treedetection_tpu_torch.ops.kernels import roi_align as k1
+    from treedetection_tpu_torch.parallel import mesh
+    config, _ = prepare_config(pipeline_config(root), str(root))
+    postprocessing.PAIR_KERNEL_CALLS.clear()
+    _reset_roi_launches(k1)                   # just before the main path
+    for mode in k234.launches:
+        k234.launches[mode] = 0
+    t0 = time.time()
+    outputs = detection.process_files(config)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {**_roi_launches(k1), **k234.launches}     # just after
+    emit({"phase": "pipeline_multihost_host", "rank": mesh.process_index(),
+          "processes": mesh.process_count(),
+          "manifest_suffix": recoveries._shard_suffix(), "wall_s": wall,
+          "stage_s": dict(detection.LAST_STAGE_SECONDS),
+          "barrier_wait_s": dict(detection.LAST_BARRIER_SECONDS),
+          "totals": detection.LAST_MULTIHOST_TOTALS,
+          "outputs": sorted(Path(p).name for p in outputs),
+          "launches": launches,
+          "pair_kernel_calls": list(postprocessing.PAIR_KERNEL_CALLS)})
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_pipeline_multihost(state, workdir: Path):
+    """``process_files`` on a copy of the pipeline phase's sheets as two
+    hosts: two processes on the one card, torchrun's environment, gloo
+    between them (``parallel.ensure_distributed``), the kernels built by
+    the build phase and loaded by both.  The crowns must equal the
+    single-host pipeline phase's."""
+    src, root = state["pipeline_inputs"], workdir / "multihost"
+    for sub in ("rgb", "nDSM"):
+        (root / sub).mkdir(parents=True)
+        for p in sorted((src / sub).glob("*.tif")):
+            os.link(p, root / sub / p.name)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TREEDETECTION_", "TD_ROI_", "LOCAL_"))}
+    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(MULTIHOST_HOSTS), TD_PAIRS_DEVICE="1")
+    procs = []
+    t0 = time.time()
+    for rank in range(MULTIHOST_HOSTS):
+        log = open(root / f"host_{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--multihost-child", str(root)], env=dict(env, RANK=str(rank)),
+            stdout=log, stderr=subprocess.STDOUT), log))
+    rows, failed = [], []
+    try:
+        for rank, (p, log) in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(
+                    MULTIHOST_CHILD_TIMEOUT_S - (time.time() - t0), 1))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            log.close()
+            text = Path(log.name).read_text()
+            line = next((ln for ln in reversed(text.splitlines()) if
+                         ln.startswith('{"phase": "pipeline_multihost_host"')),
+                        None)
+            if rc != 0 or line is None:
+                failed.append((rank, rc, text[-4000:]))
+            else:
+                rows.append(json.loads(line))
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    wall = time.time() - t0
+    if failed:
+        fail(f"pipeline_multihost: hosts failed: {failed}")
+    for row in rows:
+        emit(row)
+    want = state["pipeline_crowns"]
+    got_names = sorted(n for row in rows for n in row["outputs"])
+    same = {name: _crown_multiset(root / "out" / name)[0] == rows_
+            for name, rows_ in want.items()
+            if (root / "out" / name).is_file()}
+    launches = {k: sum(row["launches"][k] for row in rows)
+                for k in rows[0]["launches"]}
+    summary = {"phase": "pipeline_multihost", "hosts": MULTIHOST_HOSTS,
+               "wall_s": wall,
+               "stage_s_by_host": [row["stage_s"] for row in rows],
+               "barrier_wait_s_by_host": [row["barrier_wait_s"]
+                                          for row in rows],
+               "totals": rows[0]["totals"], "outputs_by_host":
+               [row["outputs"] for row in rows], "same_crowns": same,
+               "launches": launches,
+               "tolerance": "equal crown multisets (rounded rings and "
+                            "properties) per processed layer"}
+    emit(summary)
+    if got_names != sorted(want) or len(same) != len(want) or \
+            not all(same.values()):
+        fail(f"pipeline_multihost: the two hosts' crowns differ from the "
+             f"single-host pipeline phase's: outputs {got_names}, "
+             f"expected {sorted(want)}, same {same}")
+    ids = [(r["rank"], r["processes"], r["manifest_suffix"]) for r in rows]
+    if ids != [(i, MULTIHOST_HOSTS, f".{i}") for i in range(MULTIHOST_HOSTS)]:
+        fail(f"pipeline_multihost: ranks and manifest shards {ids}")
+    totals = rows[0]["totals"]
+    n_crowns = sum(len(v) for v in want.values())
+    if any(r["totals"] != totals for r in rows) or \
+            [t[0] for t in totals] != [len(r["outputs"]) for r in rows] or \
+            sum(t[1] for t in totals) != n_crowns:
+        fail(f"pipeline_multihost: all-gathered totals {totals}, expected "
+             f"the hosts' output counts and {n_crowns} crowns")
+    batches = state["pipeline"]["batches"]
+    if launches["k1"] != 2 * batches or any(r["launches"]["k1"] == 0
+                                            for r in rows):
+        fail(f"pipeline_multihost: K1 launches "
+             f"{[r['launches'] for r in rows]} for {batches} batches "
+             f"(expected twice per batch in all, and some on every host)")
+    # K2/K3 and relation_pairs once per row block of the crowns each host
+    # filtered (a host whose layers hold no crown launches none)
+    for row in rows:
+        blocks = {kind: sum(b for k, _, b in row["pair_kernel_calls"]
+                            if k == kind)
+                  for kind in ("dedupe", "containment")}
+        got = row["launches"]
+        if (got["dedupe"], got["containment"], got["pairs"]) != (
+                blocks["dedupe"], blocks["containment"],
+                blocks["dedupe"] + blocks["containment"]):
+            fail(f"pipeline_multihost host {row['rank']}: K2/K3/pairs "
+                 f"launches {got} for the blocks {blocks}")
+    _check_pair_launches("pipeline_multihost", launches,
+                         [c for row in rows for c in row["pair_kernel_calls"]])
+    state["multihost"] = summary
 
 
 # --- phase 6: the two-model configuration, and the resident layout ----------
@@ -1732,13 +1993,17 @@ def _roi_entry(key, calls, launches, launches_by_path, note):
 def kernels_line(state):
     roi, pipe = state["roi"], state["pipeline"]
     two, res = state["two_model"], state["resident"]
+    multi = state["multihost"]
     picked = roi["k6_c1"][("box", "bfloat16")]["c_split_the_launcher_picks"]
     k6_calls = {f"c_split={cs}/": roi[f"k6_c{cs}"]
                 for cs in sorted((1, 2), key=lambda cs: cs != picked)}
     kernels = [
         _roi_entry("k1", {"": roi["k1"]}, pipe["launches"]["k1"],
                    {"pipeline": pipe["launches"]["k1"],
+                    "pipeline_multihost": multi["launches"]["k1"],
                     "predictor": state["predictor"]["k1_launches"],
+                    "predictor_split":
+                    state["predictor_split"]["launches"]["k1"],
                     "pipeline_two_model": two["launches"]["k1"]}, ""),
         _roi_entry("k5", {"": roi["k5"]}, two["launches"]["k5"],
                    {"pipeline_two_model": two["launches"]["k5"],
@@ -1769,7 +2034,9 @@ def kernels_line(state):
             "replaces": f"treedetection_tpu/ops/pallas/iou_kernel.py:{line}",
             "launches": pipe["launches"][mode],
             "launches_by_path": {"pipeline": pipe["launches"][mode],
-                                 "pipeline_devicebranch": dev_branch[mode]},
+                                 "pipeline_devicebranch": dev_branch[mode],
+                                 "pipeline_multihost":
+                                 multi["launches"][mode]},
             "max_abs_err": 0.0 if r["mismatches"] == 0
             and not r.get("bits_mismatches") else 1.0,
             "mismatches": r["mismatches"],
@@ -1781,13 +2048,18 @@ def kernels_line(state):
                            f"{r['shape'][1]} columns, float32 in, "
                            + ("uint8 mask out" if mode == "iou" else
                               "the relation bit-packed out")}
+        form = "uint8" if mode == "iou" else "bits"
+        entry["design"] = f"relation_kernel<{mode}, {form}>"
+        entry["ptxas"] = state.get("relation_ptxas", {}).get(f"{mode}/{form}")
         if mode == "iou":
             entry["note"] = ("no caller in either package: launched only by "
                              "the kernel phase, where it is held against "
                              "its plain version")
         else:
             entry["bits_mismatches"] = r["bits_mismatches"]
-            entry["uint8_form"] = dict(r["uint8"], name=MASK_WRAPPERS[mode])
+            entry["uint8_form"] = dict(
+                r["uint8"], name=MASK_WRAPPERS[mode],
+                ptxas=state.get("relation_ptxas", {}).get(f"{mode}/uint8"))
             entry["block_path"] = dict(r["block_path"],
                                        paths_equal=r["paths_equal"])
         kernels.append(entry)
@@ -1801,7 +2073,8 @@ def kernels_line(state):
                          "block on the host and takes np.nonzero",
         "launches": pipe["launches"]["pairs"],
         "launches_by_path": {"pipeline": pipe["launches"]["pairs"],
-                             "pipeline_devicebranch": dev_branch["pairs"]},
+                             "pipeline_devicebranch": dev_branch["pairs"],
+                             "pipeline_multihost": multi["launches"]["pairs"]},
         "max_abs_err": 0.0 if all(state["pairwise"][m]["pairs_equal"]
                                   for m in pairs) else 1.0,
         "ms": pairs["dedupe"]["ms"], "plain_ms": pairs["dedupe"]["plain_ms"],
@@ -1821,6 +2094,8 @@ def main() -> None:
     ap.add_argument("--profile", type=Path, default=None, metavar="DIR",
                     help="after the predictor phase, profile one more pass "
                          "and write its kernel table and trace to DIR")
+    ap.add_argument("--multihost-child", type=Path, default=None,
+                    metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = args.phases.split(",")
     if set(phases) - set(PHASES):
@@ -1828,6 +2103,9 @@ def main() -> None:
     if "pipeline_two_model" in phases and "predictor" not in phases:
         fail("the pipeline_two_model phase reruns the predictor phase's "
              "raster: name both")
+    if "pipeline_multihost" in phases and "pipeline" not in phases:
+        fail("the pipeline_multihost phase reruns the pipeline phase's "
+             "sheets: name both")
     if not (REPO / "treedetection_tpu_torch" / "__init__.py").is_file():
         fail("the treedetection_tpu_torch package is not beside this script")
     sys.path.insert(0, str(REPO))
@@ -1836,6 +2114,9 @@ def main() -> None:
         fail("CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.multihost_child is not None:
+        multihost_child(args.multihost_child)
+        return
     state = {}
     t_start = time.time()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1848,12 +2129,15 @@ def main() -> None:
         if "predictor" in phases:
             phase_predictor(state, work)
             phase_predictor_levels(state, work)
+            phase_predictor_split(state, work)
             if args.profile is not None:
                 phase_profile(state, work, args.profile)
         if "model" in phases:
             phase_model(state, work)
         if "pipeline" in phases:
             phase_pipeline(state, work)
+        if "pipeline_multihost" in phases:
+            phase_pipeline_multihost(state, work)
         if "pipeline_two_model" in phases:
             phase_pipeline_two_model(state, work)
     if set(phases) == set(PHASES):

@@ -36,6 +36,7 @@ from treedetection_tpu_torch import detection, prediction, stitching
 from treedetection_tpu_torch.config import (Config, get_config,
                                             prepare_config)
 from treedetection_tpu_torch.geo import Affine, write_geotiff
+from treedetection_tpu_torch.parallel import mesh
 from treedetection_tpu_torch.vector import read_gpkg
 
 REPO = Path(__file__).resolve().parents[1]
@@ -407,9 +408,10 @@ def test_cli_runs_the_stages(runs, capsys, monkeypatch):
 
 
 def test_unported_branches_raise(tmp_path, monkeypatch):
-    """More than one host names what is missing and is the only branch that
-    still raises ``NotImplementedError``: two-model routing and RLE
-    prediction files run.  The default device raises without a card."""
+    """No branch of the port raises ``NotImplementedError`` any more: more
+    than one host runs (a host with no image predicts and fuses nothing),
+    and so do two-model routing and RLE prediction files.  The default
+    device raises without a card."""
     from treedetection_tpu_torch.compat import rle_encode
     from treedetection_tpu_torch.vector.geojson import write_geojson
     outline = str(tmp_path / "forest.geojson")
@@ -419,15 +421,15 @@ def test_unported_branches_raise(tmp_path, monkeypatch):
            "image_directory": str(tmp_path), "height_data_path": str(tmp_path),
            "output_directory": str(tmp_path / "out")}
     monkeypatch.setenv("TREEDETECTION_NUM_HOSTS", "2")
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        detection.process_files(two)
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        detection.predict_tiles(two)
+    monkeypatch.setenv("TREEDETECTION_HOST_ID", "1")
+    assert mesh.current_num_hosts() == 2
+    assert detection.predict_tiles(two) == []
     monkeypatch.delenv("TREEDETECTION_NUM_HOSTS")
+    monkeypatch.delenv("TREEDETECTION_HOST_ID")
     port = Path(detection.__file__).parent
     raising = [f.name for f in sorted(port.rglob("*.py"))
                if "raise NotImplementedError" in f.read_text()]
-    assert raising == ["detection.py"]
+    assert raising == []
     # two-model routing runs: with no image it predicts and fuses nothing
     assert detection.predict_tiles(two) == []
     assert (tmp_path / "out" / "predictions" / "urban").is_dir()
@@ -462,7 +464,7 @@ def test_get_config_equals_prepare_config(tmp_path):
     theirs, _ = jax_get_config(str(path))
     assert ours["device"] == torch.device("cpu")
     assert obj.tile_width == 25 and ours["continue"].endswith("continue.yml")
-    skip = {"device", "devices", "num_devices", "logger", "mesh_shape",
+    skip = {"device", "devices", "num_devices", "logger",
             "compilation_cache_dir"}
     assert {k: v for k, v in ours.items() if k not in skip} == \
         {k: v for k, v in theirs.items() if k not in skip}

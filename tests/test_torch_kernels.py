@@ -496,12 +496,16 @@ def _crown_boxes(n, seed=0):
 @pytest.mark.parametrize("mode", ["dedupe", "containment", "iou"])
 @pytest.mark.parametrize("n,rows", [(1000, None), (1000, (400, 477)),
                                     (1, None), (4099, (0, 4099)),
-                                    (2050, (33, 1061))])
+                                    (2050, (33, 1061)), (1008, None),
+                                    (2064, (5, 1030))])
 def test_pairwise_kernels_equal_plain_versions(cuda, mode, n, rows):
     """Exact equality of the uint8 masks: the kernel is built without FMA
     contraction and keeps the plain version's order of operations.  Square,
-    row-block, ragged (N not a multiple of 4: the byte-store path) and
-    single-box shapes."""
+    row-block, ragged (N not a multiple of 16: the chunk that N cuts takes
+    byte stores, and so do all rows where the pitch is not a multiple of
+    16), N a multiple of 16 but not of a block's 2048 columns (16-byte
+    stores up to the last chunk), an odd row count (the last pair of rows
+    holds one) and single-box shapes."""
     boxes, areas = _crown_boxes(n)
     b, a = boxes.to(cuda), areas.to(cuda)
     rb = None if rows is None else b[rows[0]:rows[1]].contiguous()
@@ -728,3 +732,71 @@ def test_pairwise_relation_kernel_on_huge_coordinates(cuda, mode, thr_name):
             mask = k234.pairwise_dedupe_mask(b, a, thr[0], thr[1], rows=rb,
                                              row_areas=ra)
         assert torch.equal(mask.cpu(), ref)
+
+
+def _mask_call(mode, b, a, rows, thr):
+    rb = None if rows is None else b[rows[0]:rows[1]].contiguous()
+    if mode == "iou":
+        return k234.pairwise_iou_mask(b, thr[0], rows=rb)
+    if mode == "containment":
+        return k234.pairwise_containment_mask(b, thr[0], rows=rb)
+    ra = None if rows is None else a[rows[0]:rows[1]].contiguous()
+    return k234.pairwise_dedupe_mask(b, a, thr[0], thr[1], rows=rb,
+                                     row_areas=ra)
+
+
+def _plain_mask_any(mode, boxes, areas, rows, thr):
+    if mode != "iou":
+        return _plain_mask(mode, boxes, areas, rows, thr)
+    rb = boxes if rows is None else boxes[rows[0]:rows[1]]
+    return k234.iou_mask_reference(rb, boxes, thr[0])
+
+
+MASK_THRESHOLDS = {**PAIR_THRESHOLDS, ("iou", "default"): (0.5, 0.0),
+                   ("iou", "le_0"): (-0.1, 0.0)}
+
+
+@pytest.mark.parametrize("mode", ["dedupe", "containment", "iou"])
+@pytest.mark.parametrize("thr_name", ["default", "le_0"])
+@pytest.mark.parametrize("boxes_kind", ["crowns", "huge_coordinates"])
+def test_pairwise_masks_at_every_threshold(cuda, mode, thr_name, boxes_kind):
+    """The uint8 form of the relation kernel (K4's only form) EQUALS the
+    plain version with thresholds <= 0 (every pair that does not meet is a
+    hit, so whole rows of ones take the 16-byte stores) and with boxes past
+    2^126 (their warps take the whole formula), square and row-block, N a
+    multiple of 16 (1024) and not (1000)."""
+    thr = MASK_THRESHOLDS[(mode, thr_name)]
+    for n, rows in ((1024, None), (1024, (100, 333)), (1000, (7, 200))):
+        boxes, areas = _crown_boxes(n, seed=5)
+        if boxes_kind == "huge_coordinates":
+            boxes[::37, 0], boxes[::37, 2] = -3e38, 3e38
+        b, a = boxes.to(cuda), areas.to(cuda)
+        before = k234.launches[mode]
+        got = _mask_call(mode, b, a, rows, thr)
+        torch.cuda.synchronize()
+        assert k234.launches[mode] == before + 1
+        assert torch.equal(got.cpu(), _plain_mask_any(mode, boxes, areas,
+                                                      rows, thr))
+
+
+@pytest.mark.parametrize("mode", ["dedupe", "containment", "iou"])
+@pytest.mark.parametrize("shift", [1, 4, 8])
+def test_pairwise_mask_into_an_unaligned_block(cuda, mode, shift):
+    """A mask block whose base is not 16-byte aligned (the wrappers' own
+    blocks always are) takes the byte stores and still EQUALS the plain
+    version; the bytes before and after it are left alone."""
+    boxes, areas = _crown_boxes(1024, seed=6)
+    b, a = boxes.to(cuda), areas.to(cuda)
+    if mode == "dedupe":
+        b = torch.cat([b, a[:, None]], dim=1)
+    rows = b[:77].contiguous()
+    n = b.shape[0]
+    thr = MASK_THRESHOLDS[(mode, "default")]
+    flat = torch.full((77 * n + 32,), 7, dtype=torch.uint8, device=cuda)
+    out = flat[shift:shift + 77 * n].view(77, n)
+    assert out.data_ptr() % 16 != 0
+    k234._launch_into(mode, rows, b, out, thr[0], thr[1], packed=False)
+    torch.cuda.synchronize()
+    ref = _plain_mask_any(mode, boxes, areas, (0, 77), thr)
+    assert torch.equal(out.cpu(), ref)
+    assert (flat[:shift] == 7).all() and (flat[shift + 77 * n:] == 7).all()

@@ -309,14 +309,14 @@ def test_port_never_imports_jax_statically():
         "roi_pool_levels.cu", "roi_pool_resident.cu", "roi_pool_window.cuh",
         "contour.cpp"]
     assert {"compat.py", "cli.py"} <= {f.name for f in files}
+    assert PORT / "parallel" / "mesh.py" in files
 
 
 @pytest.mark.parametrize("name", ["config.yml", "config_r101.yml"])
 def test_config_defaults_and_model_spec_match_jax(name):
     """The example configs load to the same dict, take the same defaults
-    and build the same model spec field for field.  Two keys differ on
-    purpose: ``device`` names a torch device in the port, and
-    ``mesh_shape`` (the JAX device mesh) waits for the multi-GPU slice."""
+    and build the same model spec field for field.  One key differs on
+    purpose: ``device`` names a torch device in the port."""
     import dataclasses
     from treedetection_tpu import config as jax_config
     from treedetection_tpu_torch import config as port_config
@@ -325,7 +325,7 @@ def test_config_defaults_and_model_spec_match_jax(name):
     assert raw == jax_config.load_config(path)
     filled = port_config.apply_defaults(dict(raw))
     for key, default in jax_config._DEFAULTS:
-        if key not in ("device", "mesh_shape"):
+        if key != "device":
             assert filled[key] == raw.get(key, default), key
     ours = port_config.model_spec(filled)
     theirs = jax_config.model_spec(filled)

@@ -7,7 +7,10 @@ Differences:
 
 * ``device`` selects a torch device — ``cuda`` (default), ``cuda:N``, ``N``
   or ``cpu``.  A request for CUDA on a machine without it raises; it never
-  becomes the CPU silently.
+  becomes the CPU silently.  ``devices`` (a list of such entries, resolved
+  from ``device`` where it is not given: :func:`select_devices`) are the
+  devices a Predictor splits its batches over, as the JAX package's
+  ``devices`` are its mesh.
 * The TPU-only knobs are not ported: the 512-input crash guard, ``fold_w``
   (W-folded res2 for the 128-lane MXU) and ``scan_blocks``.
   ``rpn_approx_topk_from`` is kept as a field so configs load unchanged, but
@@ -23,7 +26,7 @@ import logging
 import os
 import sys
 import time
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, List, Tuple, Union
 
 import torch
 
@@ -136,6 +139,25 @@ def select_device(raw_device: Union[None, int, str, torch.device] = None
     return dev
 
 
+def select_devices(raw_device: Union[None, int, str, torch.device] = None
+                   ) -> List[torch.device]:
+    """The devices ``device`` selects for a Predictor to split its batches
+    over.  ``None`` / ``"cuda"`` (no index) -> every visible card, as the
+    JAX package's default device list is every device, except under a
+    launcher that starts several processes per host (``LOCAL_WORLD_SIZE``
+    > 1, as torchrun sets it), where each process takes its own card,
+    ``cuda:LOCAL_RANK``; anything else -> the one device
+    :func:`select_device` gives."""
+    first = select_device(raw_device)
+    plain = raw_device is None or (isinstance(raw_device, str)
+                                   and raw_device.strip().lower() == "cuda")
+    if first.type != "cuda" or not plain:
+        return [first]
+    if int(os.environ.get("LOCAL_WORLD_SIZE") or 1) > 1:
+        return [select_device(int(os.environ.get("LOCAL_RANK") or 0))]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 _DEFAULTS: Tuple[Tuple[str, Any], ...] = (
     # Paths / staging
     ("output_directory", "./output"),
@@ -178,6 +200,8 @@ _DEFAULTS: Tuple[Tuple[str, Any], ...] = (
     ("ndvi_var_threshold", 0.1),
     # Model / runtime extras
     ("device", "cuda"),            # cuda | cuda:N | N | cpu
+    ("mesh_shape", None),          # e.g. {"data": 2}: the first 2 devices;
+                                   # None -> every device of `devices`
     ("model_input_size", 1024),    # static model input resolution (px)
     ("max_detections", 100),       # static per-tile detection budget
     ("mixed_precision", True),     # bfloat16 model on the GPU
@@ -202,8 +226,9 @@ def prepare_config(config: Dict[str, Any], base_dir: str
                    ) -> Tuple[Dict[str, Any], Config]:
     """Validate and default-fill a raw config dict (in place): resolve the
     path keys against ``base_dir``, check the inputs and the model files,
-    fill ``_DEFAULTS``, create the output and tile directories, normalize
-    ``device`` to a ``torch.device`` (CUDA requested without a card raises),
+    fill ``_DEFAULTS``, create the output and tile directories, resolve
+    ``devices`` (a list of ``torch.device``; CUDA requested without a card
+    raises) and set ``device`` to the first,
     attach the logger, and load the :class:`Config` singleton.  Everything
     :func:`get_config` does after reading the YAML; callers that already
     hold a dict start here."""
@@ -252,7 +277,11 @@ def prepare_config(config: Dict[str, Any], base_dir: str
     os.makedirs(config["output_directory"], exist_ok=True)
     os.makedirs(config["tiles_path"], exist_ok=True)
 
-    config["device"] = select_device(config.get("device"))
+    raw_devices = config.get("devices")
+    config["devices"] = ([select_device(d) for d in raw_devices]
+                         if raw_devices else
+                         select_devices(config.get("device")))
+    config["device"] = config["devices"][0]
 
     config["logger"] = setup_logging(
         os.path.join(config["output_directory"], "logs"), config["debug"])

@@ -27,12 +27,12 @@
 // 3.35 TB/s) and the host's nonzero over it costs ~1 s; divided out for every
 // pair, IEEE `div.rn` sets the time.  So:
 //
-// * `relation_kernel<MODE, FORM>` (K3 containment, K2 dedupe) first asks
-//   whether a pair can meet at all.  Where inter == 0 the quotient (IoU or
-//   inter / area_b) is exactly +-0 or the `where` branch's 0, so the hit is
-//   `0 > t0` (IoU) or `0 >= t0` (containment) with no arithmetic; that holds
-//   for every threshold, also t0 <= 0, where every non-meeting pair is a
-//   hit.  For boxes whose coordinates are all below 2^126 in magnitude
+// * `relation_kernel<MODE, FORM>` (K4 iou, K3 containment, K2 dedupe) first
+//   asks whether a pair can meet at all.  Where inter == 0 the quotient (IoU
+//   or inter / area_b) is exactly +-0 or the `where` branch's 0, so the hit
+//   is `0 > t0` (IoU) or `0 >= t0` (containment) with no arithmetic; that
+//   holds for every threshold, also t0 <= 0, where every non-meeting pair is
+//   a hit.  For boxes whose coordinates are all below 2^126 in magnitude
 //   (`safe_box`: differences stay finite) a pair that fails one of four
 //   comparisons (ax1 > bx0, bx1 > ax0, ay1 > by0, by1 > ay0) has iw or ih 0
 //   and so inter == 0 * finite == 0; a warp whose strip or columns hold
@@ -53,18 +53,21 @@
 //   swap turn a ballot word into it), zero-filled past N up to the pitch
 //   (a multiple of 16 bytes): two lanes hold one row's eight words, so after
 //   16 rows every lane stores 16 bytes and the warp 16 whole 32-byte
-//   sectors.  FORM kBytes writes the (R, N) uint8 mask, 32 consecutive bytes
-//   per warp store.
+//   sectors.  FORM kBytes writes the (R, N) uint8 mask at a row pitch: the
+//   ballot words already hold every bit of a row, so each lane keeps 16 bits
+//   of one row of a pair of rows (lanes 0-15 the first, 16-31 the second),
+//   expands them to 16 bytes in registers (`nibble_bytes`) and stores them
+//   as one uint4: per pair of rows the warp writes two runs of 256
+//   contiguous bytes, 16 whole sectors per store instruction, where a byte
+//   per lane and column took 16 store instructions.  A row pitch or base
+//   that is not a multiple of 16 bytes, and the chunk that N cuts, take
+//   byte stores.
 // * `row_count_kernel` and `row_pairs_kernel` compact a bit-packed block to
 //   its pairs: a warp per row counts its bits (`__popc`, the bits past N and
 //   the diagonal j == row_offset + i masked off); the caller scans the R
 //   counts and reads the total once to size the output; then each row with
 //   pairs places them at its offset in row-major order (np.nonzero's), each
 //   lane by the warp's prefix sum of its word's count.
-// * `pairwise_iou_kernel` (K4, no caller in either package) keeps the first
-//   port's design for the IoU mode: a strip of kStrip rows staged in shared
-//   memory against kThreads*4 columns held four per thread, every pair
-//   divided, the uint8 mask written with 4-byte stores where N % 4 == 0.
 
 #include <cuda_runtime.h>
 
@@ -74,95 +77,13 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPerThread = 4;
-constexpr int kSpan = kThreads * kPerThread;  // columns per block
-constexpr int kStrip = 32;                    // rows per block
-
 enum Mode { kIou = 0, kContainment = 1, kDedupe = 2 };
 
 __device__ __forceinline__ float box_area(float x0, float y0, float x1, float y1) {
   return fmaxf(x1 - x0, 0.0f) * fmaxf(y1 - y0, 0.0f);
 }
 
-// --- K4: IoU above t0, every pair divided -------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-pairwise_iou_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                    uint8_t* __restrict__ out, int n_rows, int n_cols,
-                    float t0) {
-  __shared__ float s_a[kStrip][5];  // x0, y0, x1, y1, box area
-
-  const int row0 = static_cast<int>(blockIdx.x) * kStrip;
-  const int col0 = static_cast<int>(blockIdx.y) * kSpan +
-                   static_cast<int>(threadIdx.x) * kPerThread;
-  const int rows = min(kStrip, n_rows - row0);
-
-  const int tid = static_cast<int>(threadIdx.x);
-  if (tid < rows) {
-    const float* p = a + static_cast<size_t>(row0 + tid) * 4;
-    const float x0 = p[0], y0 = p[1], x1 = p[2], y1 = p[3];
-    s_a[tid][0] = x0;
-    s_a[tid][1] = y0;
-    s_a[tid][2] = x1;
-    s_a[tid][3] = y1;
-    s_a[tid][4] = box_area(x0, y0, x1, y1);
-  }
-
-  float bx0[kPerThread], by0[kPerThread], bx1[kPerThread], by1[kPerThread];
-  float barea[kPerThread];
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int c = col0 + k;
-    if (c < n_cols) {
-      const float* p = b + static_cast<size_t>(c) * 4;
-      bx0[k] = p[0];
-      by0[k] = p[1];
-      bx1[k] = p[2];
-      by1[k] = p[3];
-    } else {
-      bx0[k] = by0[k] = bx1[k] = by1[k] = 0.0f;
-    }
-    barea[k] = box_area(bx0[k], by0[k], bx1[k], by1[k]);
-  }
-  __syncthreads();
-  if (col0 >= n_cols) return;
-
-  const bool vector_store = (n_cols % kPerThread == 0);  // col0 + 3 < n_cols then
-  for (int i = 0; i < rows; ++i) {
-    const float ax0 = s_a[i][0], ay0 = s_a[i][1], ax1 = s_a[i][2], ay1 = s_a[i][3];
-    const float aarea = s_a[i][4];
-    uint8_t r[kPerThread];
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      const float iw = fmaxf(fminf(ax1, bx1[k]) - fmaxf(ax0, bx0[k]), 0.0f);
-      const float ih = fmaxf(fminf(ay1, by1[k]) - fmaxf(ay0, by0[k]), 0.0f);
-      const float inter = iw * ih;
-      const float uni = (aarea + barea[k]) - inter;
-      const float iou = uni > 0.0f ? inter / uni : 0.0f;
-      r[k] = iou > t0 ? 1 : 0;
-    }
-    uint8_t* dst = out + static_cast<size_t>(row0 + i) * n_cols + col0;
-    if (vector_store) {
-      *reinterpret_cast<uchar4*>(dst) = make_uchar4(r[0], r[1], r[2], r[3]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < kPerThread; ++k)
-        if (col0 + k < n_cols) dst[k] = r[k];
-    }
-  }
-}
-
-cudaError_t launch_iou(const float* a, const float* b, uint8_t* out, int n_rows,
-                       int n_cols, float t0, cudaStream_t stream) {
-  const unsigned strips = (static_cast<unsigned>(n_rows) + kStrip - 1) / kStrip;
-  const unsigned spans = (static_cast<unsigned>(n_cols) + kSpan - 1) / kSpan;
-  if (spans > 65535u) return cudaErrorInvalidValue;
-  pairwise_iou_kernel<<<dim3(strips, spans), kThreads, 0, stream>>>(
-      a, b, out, n_rows, n_cols, t0);
-  return cudaGetLastError();
-}
-
-// --- K2, K3: the relation kernel ---------------------------------------------
+// --- K2, K3, K4: the relation kernel ---------------------------------------
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = kThreads / 32;
@@ -244,11 +165,35 @@ __device__ __forceinline__ uint32_t relation_word(
   return zero_hit ? valid : 0u;
 }
 
+// Four bits (bit j = column j) as four bytes of 0 or 1 in column order: the
+// shifted copies of the nibble (bits 0-3, 7-10, 14-17, 21-24) do not
+// overlap, so bit j lands alone at bit 8j.
+__device__ __forceinline__ uint32_t nibble_bytes(uint32_t nibble) {
+  return (nibble * 0x00204081u) & 0x01010101u;
+}
+
+// Columns c .. c + 15 of one uint8 row from their 16 bits (bit j = column
+// c + j), none at or past n_cols: one 16-byte store where `vec` (the row
+// and c are 16-byte aligned) and all 16 are inside, else a byte each.
+__device__ __forceinline__ void store_bytes16(uint8_t* __restrict__ row,
+                                              int c, int n_cols,
+                                              uint32_t bits, bool vec) {
+  if (c >= n_cols) return;
+  if (vec && c + 16 <= n_cols) {
+    *reinterpret_cast<uint4*>(row + c) = make_uint4(
+        nibble_bytes(bits & 15u), nibble_bytes((bits >> 4) & 15u),
+        nibble_bytes((bits >> 8) & 15u), nibble_bytes((bits >> 12) & 15u));
+    return;
+  }
+  const int n = min(16, n_cols - c);
+  for (int j = 0; j < n; ++j) row[c + j] = (bits >> j) & 1u;
+}
+
 // The warp's part of one block: the strip's rows (s_a, six floats each)
 // against its kWords words of columns (registers), written as FORM.  A row
 // none of whose kWords * 32 pairs may meet (most rows: 0.07% of the
 // production block's pairs meet) costs four comparisons per pair and one
-// vote: its words are the zero-intersection hits, set before the row loop.
+// vote: its words are the zero-intersection hits.
 template <int MODE, int FORM, bool SAFE>
 __device__ __forceinline__ void relation_strip(
     const float* s_a, int rows, int row0, int wcol0, int lane,
@@ -256,19 +201,29 @@ __device__ __forceinline__ void relation_strip(
     const float (&bx1)[kWords], const float (&by1)[kWords],
     const float (&barea)[kWords], const float (&bpoly)[kWords],
     const uint32_t (&valid)[kWords], uint8_t* __restrict__ out, int n_cols,
-    int pitch, float t0, float t1, int clear_diag) {
+    int pitch, float t0, float t1, int clear_diag, bool vec) {
   // the hit of a pair whose intersection is 0: the quotient is exactly +-0
   // (or the `where` branch's 0), whatever the threshold
   const bool zero_hit = MODE == kContainment ? (0.0f >= t0) : (0.0f > t0);
   // every row goes word by word: unsafe boxes, or dedupe's area term
   // decides the pairs that do not meet
   const bool by_word = !SAFE || (MODE == kDedupe && zero_hit);
+  // kBytes: lane l stores columns 16 (l % 16) .. +15 of the warp's 256, bits
+  // 16 (l % 2) .. +15 of word (l % 16) / 2, of the first (l < 16) or the
+  // second row of each pair of rows
+  const int my_word = (lane & 15) >> 1;
+  const int my_shift = 16 * (lane & 1);
+  uint32_t my_valid = 0;
+#pragma unroll
+  for (int k = 0; k < kWords; ++k)
+    if (k == my_word) my_valid = (valid[k] >> my_shift) & 0xffffu;
   for (int g = 0; g < rows; g += kGroup) {
     const int n_in = min(kGroup, rows - g);
-    uint32_t acc[4];  // lane l: words 4 (l % 2) .. +3 of row g + l / 2
+    uint32_t acc[4];  // kBits, lane l: words 4 (l % 2) .. +3 of row g + l / 2
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       acc[kk] = zero_hit ? ((lane & 1) ? valid[4 + kk] : valid[kk]) : 0u;
+    uint32_t half = 0;  // kBytes: this lane's 16 bits of its row of the pair
     for (int r = 0; r < n_in; ++r) {
       const int i = g + r;
       float ra[6];
@@ -280,6 +235,7 @@ __device__ __forceinline__ void relation_strip(
         for (int k = 0; k < kWords; ++k)
           meet |= may_meet(ra, bx0[k], by0[k], bx1[k], by1[k]);
       }
+      uint32_t bits16 = zero_hit ? my_valid : 0u;  // a row that meets nowhere
       if (__any_sync(kFull, meet)) {
 #pragma unroll
         for (int k = 0; k < kWords; ++k) {
@@ -288,19 +244,18 @@ __device__ __forceinline__ void relation_strip(
               valid[k], zero_hit, t0, t1);
           if (FORM == kBits) {
             if (r == (lane >> 1) && (k >> 2) == (lane & 1)) acc[k & 3] = word;
-          } else {
-            const int c = wcol0 + 32 * k + lane;
-            if (c < n_cols)
-              out[static_cast<size_t>(row0 + i) * n_cols + c] =
-                  (word >> lane) & 1u;
+          } else if (k == my_word) {
+            bits16 = (word >> my_shift) & 0xffffu;
           }
         }
-      } else if (FORM == kBytes) {
-#pragma unroll
-        for (int k = 0; k < kWords; ++k) {
-          const int c = wcol0 + 32 * k + lane;
-          if (c < n_cols)
-            out[static_cast<size_t>(row0 + i) * n_cols + c] = zero_hit;
+      }
+      if (FORM == kBytes) {
+        if (((r ^ (lane >> 4)) & 1) == 0) half = bits16;
+        if ((r & 1) || r == n_in - 1) {  // the pair is complete
+          const int pr = (r & ~1) + (lane >> 4);
+          if (pr <= r)
+            store_bytes16(out + static_cast<size_t>(row0 + g + pr) * pitch,
+                          wcol0 + 16 * (lane & 15), n_cols, half, vec);
         }
       }
     }
@@ -325,14 +280,15 @@ __device__ __forceinline__ void relation_strip(
 }
 
 // One block: kRelStrip rows against kRelSpan columns; warp w owns kWords
-// words of 32 columns, lane l column 32k + l of word k.  FORM kBits writes
-// out as (n_rows, pitch) bytes, FORM kBytes as (n_rows, n_cols); with
-// clear_diag (kBits only) column i of row i is cleared.
+// words of 32 columns, lane l column 32k + l of word k.  out is (n_rows,
+// pitch) bytes: FORM kBits the packed rows, FORM kBytes the mask's n_cols
+// bytes per row (16-byte stores where `vec`).  With clear_diag (kBits only)
+// column i of row i is cleared.
 template <int MODE, int FORM>
 __global__ void __launch_bounds__(kThreads, kRelMinBlocks)
 relation_kernel(const float* __restrict__ a, const float* __restrict__ b,
                 uint8_t* __restrict__ out, int n_rows, int n_cols, int pitch,
-                float t0, float t1, int clear_diag) {
+                float t0, float t1, int clear_diag, int vec) {
   constexpr int W = MODE == kDedupe ? 5 : 4;
   // x0, y0, x1, y1, box area, polygon area
   __shared__ float s_a[kRelStrip][6];
@@ -385,11 +341,13 @@ relation_kernel(const float* __restrict__ a, const float* __restrict__ b,
   if (unsafe)
     relation_strip<MODE, FORM, false>(&s_a[0][0], rows, row0, wcol0, lane,
                                       bx0, by0, bx1, by1, barea, bpoly, valid,
-                                      out, n_cols, pitch, t0, t1, clear_diag);
+                                      out, n_cols, pitch, t0, t1, clear_diag,
+                                      vec != 0);
   else
     relation_strip<MODE, FORM, true>(&s_a[0][0], rows, row0, wcol0, lane,
                                      bx0, by0, bx1, by1, barea, bpoly, valid,
-                                     out, n_cols, pitch, t0, t1, clear_diag);
+                                     out, n_cols, pitch, t0, t1, clear_diag,
+                                     vec != 0);
 }
 
 template <int MODE, int FORM>
@@ -401,8 +359,11 @@ cudaError_t launch_relation(const float* a, const float* b, uint8_t* out,
   const unsigned spans =
       (static_cast<unsigned>(n_cols) + kRelSpan - 1) / kRelSpan;
   if (spans > 65535u) return cudaErrorInvalidValue;
+  // the uint8 form's 16-byte stores need 16-byte aligned rows
+  const int vec =
+      pitch % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   relation_kernel<MODE, FORM><<<dim3(strips, spans), kThreads, 0, stream>>>(
-      a, b, out, n_rows, n_cols, pitch, t0, t1, clear_diag);
+      a, b, out, n_rows, n_cols, pitch, t0, t1, clear_diag, vec);
   return cudaGetLastError();
 }
 
@@ -485,10 +446,11 @@ row_pairs_kernel(const uint8_t* __restrict__ bits, long long stride,
 extern "C" {
 
 // mode: 0 = iou, 1 = containment, 2 = dedupe (a and b then have 5 columns).
-// `out` is (n_rows, n_cols) uint8, contiguous, and 4-byte aligned.  Modes 1
-// and 2 run relation_kernel (FORM kBytes), mode 0 pairwise_iou_kernel.
-// Returns a cudaError_t (0 on success); cudaErrorInvalidValue for an unknown
-// mode or more than 65535 * 1024 columns.
+// `out` is (n_rows, n_cols) uint8 and contiguous; every mode runs
+// relation_kernel (FORM kBytes), with 16-byte stores where `out` is 16-byte
+// aligned and n_cols a multiple of 16.  Returns a cudaError_t (0 on
+// success); cudaErrorInvalidValue for an unknown mode or more than
+// 65535 * 2048 columns.
 int td_pairwise_boxes(const void* a, const void* b, void* out, int n_rows,
                       int n_cols, int mode, float t0, float t1, void* stream) {
   if (n_rows <= 0 || n_cols <= 0) return 0;
@@ -498,7 +460,8 @@ int td_pairwise_boxes(const void* a, const void* b, void* out, int n_rows,
   uint8_t* o = static_cast<uint8_t*>(out);
   switch (mode) {
     case kIou:
-      return launch_iou(fa, fb, o, n_rows, n_cols, t0, s);
+      return launch_relation<kIou, kBytes>(fa, fb, o, n_rows, n_cols, n_cols,
+                                           t0, t1, 0, s);
     case kContainment:
       return launch_relation<kContainment, kBytes>(fa, fb, o, n_rows, n_cols,
                                                    n_cols, t0, t1, 0, s);

@@ -15,10 +15,19 @@ and the final copies at the output root (reference ``detection.py:46-59``).
 Ported: one combined model, or two-model routing (``urban_model`` +
 ``forrest_model`` + ``forrest_outline``: an urban pass that skips forest-only
 tiles, a forest pass that skips urban-only tiles, fused by the outline), on
-one device of one host.  Runs over more than one host raise
-``NotImplementedError``.  Left out by decision: the compile warm-up thread
-and the device gate of the JAX package (CUDA streams order the work of the
-predict thread and of the postprocess worker).
+one or several devices (``parallel.make_mesh``) of one or several hosts.
+
+Multi-host: every host runs ``process_files`` on shared storage, under
+torchrun (``torch.distributed`` over gloo, initialised by
+``parallel.ensure_distributed``) or with ``TREEDETECTION_NUM_HOSTS`` /
+``TREEDETECTION_HOST_ID``.  Seams are planned over the full image list; each
+host tiles its slice (``parallel.partition_files``) plus the strips whose
+primary raster it owns, predicts its slice, and postprocesses the stitched
+layers of its slice (host 0 also the layers no host's image names), with
+barriers between the stages and the totals all-gathered at the end.  Left
+out by decision: the compile warm-up thread and the device gate of the JAX
+package (CUDA streams order the work of the predict thread and of the
+postprocess worker).
 """
 
 from __future__ import annotations
@@ -34,32 +43,37 @@ from typing import Any, Dict, List, Optional, Tuple
 from treedetection_tpu_torch.config import Config
 from treedetection_tpu_torch import recoveries
 from treedetection_tpu_torch.merging import merge_and_crop_images
+from treedetection_tpu_torch.parallel.mesh import (
+    current_host_id, current_num_hosts, ensure_distributed, partition_files,
+    process_count)
 from treedetection_tpu_torch.preprocessing import tile_data, load_tile_metadata
 from treedetection_tpu_torch.stitching import process_and_stitch_predictions
 
 
 # Wall-clock seconds of the stages of the most recent process_files call.
 LAST_STAGE_SECONDS: Dict[str, float] = {}
+# Seconds each barrier of the most recent multi-process process_files call
+# waited for the other hosts (inside the stage seconds above).
+LAST_BARRIER_SECONDS: Dict[str, float] = {}
+# [files, crowns] of each host, all-gathered at the end of the most recent
+# multi-process process_files call.
+LAST_MULTIHOST_TOTALS: List[List[int]] = []
 
 
 def _predictions_dir(config: Dict[str, Any]) -> str:
     return os.path.join(config["output_directory"], "predictions")
 
 
-def _num_hosts() -> int:
-    """Hosts of this run (``TREEDETECTION_NUM_HOSTS``).  More than one is not
-    ported yet and raises."""
-    num_hosts = int(os.environ.get("TREEDETECTION_NUM_HOSTS", 0)) or 1
-    if num_hosts > 1:
-        raise NotImplementedError(
-            f"TREEDETECTION_NUM_HOSTS={num_hosts}: multi-host runs (file "
-            f"partitioning, barriers, cross-host totals) are not ported yet")
-    return num_hosts
-
-
-def _list_images(config: Dict[str, Any]) -> Tuple[List[str], List[str]]:
+def _list_images(config: Dict[str, Any],
+                 partition: bool = True) -> Tuple[List[str], List[str]]:
     """Glob + continue-filter + merged-strip inclusion for both directories
-    (reference ``detection.py:277-285``)."""
+    (reference ``detection.py:277-285``).
+
+    On a multi-host run each process sees only its deterministic slice of
+    the image list (``parallel.partition_files``); height rasters are NOT
+    partitioned because any image may need any height twin.  Pass
+    ``partition=False`` for the FULL list (wherever planning must see every
+    raster, e.g. the cross-host seam-neighbor search)."""
     images = sorted(glob.glob(os.path.join(config["image_directory"], "*.tif")))
     heights = sorted(glob.glob(os.path.join(config["height_data_path"], "*.tif")))
     merged = config.get("merged_path", "merged")
@@ -70,7 +84,8 @@ def _list_images(config: Dict[str, Any]) -> Tuple[List[str], List[str]]:
     skip = set(recoveries.load_continue_file(config.get("continue")))
     images = [p for p in images if os.path.basename(p) not in skip
               and p not in skip]
-    _num_hosts()
+    if partition and current_num_hosts() > 1:
+        images = partition_files(images)
     return images, heights
 
 
@@ -117,20 +132,32 @@ def match_image_heights(config: Dict[str, Any], images: List[str],
 # --- stage 1 ----------------------------------------------------------------
 
 def preprocess_files(config: Dict[str, Any]) -> List[str]:
-    """Overlap merging + tiling (reference ``detection.py:256-339``)."""
+    """Overlap merging + tiling (reference ``detection.py:256-339``).
+
+    Multi-host: seam-neighbor planning runs over the FULL image list (a
+    per-host slice would drop every cross-host seam).  Each host then
+    generates only the strips whose primary (left/top) raster falls in its
+    slice, and tiles its slice plus its own strips.  Any host can read any
+    raster from shared storage; each strip is written by exactly one host."""
     Config()._load_into_config(config)
     logger = config.get("logger")
-    images_full, heights_full = _list_images(config)
+    images_full, heights_full = _list_images(config, partition=False)
     # only base (non-merged) files participate in neighbor merging
     merged_dir = config.get("merged_path", "merged")
     base_images = [p for p in images_full if merged_dir not in Path(p).parts]
     base_heights = [p for p in heights_full if merged_dir not in Path(p).parts]
-    my_images = list(base_images)
+    if current_num_hosts() > 1:
+        my_images = partition_files(base_images)
+        my_heights = partition_files(base_heights)
+    else:
+        my_images, my_heights = list(base_images), list(base_heights)
     heights = list(base_heights)
     if config.get("use_overlap", True):
         images = list(base_images)
-        merge_and_crop_images(config, images, heights)
-        # tile the base rasters + the strips just created
+        merge_and_crop_images(config, images, heights,
+                              owned_images=set(my_images),
+                              owned_heights=set(my_heights))
+        # tile this host's base slice + the strips it created or owns
         base_set = set(base_images)
         my_images += [p for p in images if p not in base_set]
     pairs = match_image_heights(config, my_images, heights)
@@ -301,10 +328,27 @@ def postprocess_files(config: Dict[str, Any]) -> List[str]:
     images, heights = _list_images(config)
 
     stitched = sorted(glob.glob(os.path.join(pred_root, "*.gpkg")))
+    only_stems = all_stems = None
+    orphan_owner = True
+    index_images = images
+    if current_num_hosts() > 1:
+        # each stitched layer is postprocessed by exactly ONE host (the one
+        # owning its image in the partition); host 0 takes the layers no
+        # host's image names
+        images_full, _ = _list_images(config, partition=False)
+        index_images = images_full  # the raster index may need any raster
+        only_stems = {Path(p).stem for p in images}
+        all_stems = {Path(p).stem for p in images_full}
+        orphan_owner = current_host_id() == 0
+        stitched = [p for p in stitched
+                    if Path(p).stem in only_stems
+                    or (orphan_owner and Path(p).stem not in all_stems)]
     exclude_outlines(stitched, config.get("exclude_files", []), logger)
     processed = process_files_in_directory(
-        config, pred_root, images, heights,
-        out_dir=config["output_directory"])
+        config, pred_root, index_images, heights,
+        out_dir=config["output_directory"],
+        only_stems=only_stems, all_stems=all_stems,
+        orphan_owner=orphan_owner)
 
     # final copy (reference detection.py:46-59)
     out_root = config["output_directory"]
@@ -348,9 +392,15 @@ def process_files(config: Dict[str, Any]) -> List[str]:
     """Full pipeline with per-stage timing (reference ``detection.py:342-373``)."""
     Config()._load_into_config(config)
     logger = config.get("logger")
-    _num_hosts()
+    ensure_distributed(config, logger)
+    LAST_BARRIER_SECONDS.clear()
+    LAST_MULTIHOST_TOTALS.clear()
     t0 = time.time()
     preprocess_files(config)
+    # a host's predict stage may take images that another host tiled (and
+    # seam strips another host wrote): all preprocessing must be on shared
+    # storage before any host reads it
+    _multihost_barrier("preprocess_done", logger)
     t1 = time.time()
     # Overlapped predict/postprocess: file N's stitch + postprocess runs on
     # a background worker while file N+1 predicts.  Every step is idempotent
@@ -360,11 +410,12 @@ def process_files(config: Dict[str, Any]) -> List[str]:
     two_model = (config.get("urban_model") and config.get("forrest_model")
                  and config.get("forrest_outline"))
     overlap = (config.get("overlap_postprocess", True) and not two_model
-               and _num_hosts() == 1)
+               and current_num_hosts() == 1)
     if overlap:
         _predict_postprocess_overlapped(config)
     else:
         predict_tiles(config)
+    _multihost_barrier("predict_done", logger)
     t2 = time.time()
     outputs = postprocess_files(config)
     t3 = time.time()
@@ -379,7 +430,52 @@ def process_files(config: Dict[str, Any]) -> List[str]:
             f"Timing: preprocess {t1 - t0:.1f}s, predict {t2 - t1:.1f}s, "
             f"postprocess {t3 - t2:.1f}s, cleanup {t4 - t3:.1f}s, "
             f"total {t4 - t0:.1f}s")
+    _log_multihost_totals(outputs, logger)
     return outputs
+
+
+def _multihost_barrier(name: str, logger) -> None:
+    """Block until every process of the ``torch.distributed`` group reaches
+    this point, and record the seconds waited in ``LAST_BARRIER_SECONDS``.
+    A no-op without a group of more than one process, as in the
+    environment-variable simulation, whose hosts run one after another
+    (which is itself a barrier)."""
+    if process_count() <= 1:
+        return
+    import torch.distributed as dist
+    t0 = time.time()
+    try:
+        dist.barrier()
+    except RuntimeError as exc:  # a failed barrier must not kill the run
+        if logger:
+            logger.warning(f"Cross-host barrier {name} failed: {exc}")
+    LAST_BARRIER_SECONDS[name] = time.time() - t0
+
+
+def _log_multihost_totals(outputs: List[str], logger) -> None:
+    """On a multi-process run, all-gather each host's (files, crowns)
+    totals so that every host logs the run's counts."""
+    if process_count() <= 1:
+        return
+    import torch
+    import torch.distributed as dist
+    from treedetection_tpu_torch.vector import read_gpkg
+    crowns = sum(len(read_gpkg(p)[0]) for p in outputs if os.path.exists(p))
+    mine = torch.tensor([len(outputs), crowns], dtype=torch.int64)
+    try:
+        totals = [torch.zeros_like(mine) for _ in range(process_count())]
+        dist.all_gather(totals, mine)
+    except RuntimeError as exc:  # a failed collective must not kill outputs
+        if logger:
+            logger.warning(f"Cross-host metric reduction failed: {exc}")
+        return
+    LAST_MULTIHOST_TOTALS[:] = [t.tolist() for t in totals]
+    if logger:
+        files = sum(int(t[0]) for t in totals)
+        all_crowns = sum(int(t[1]) for t in totals)
+        logger.info(f"Multi-host totals: {files} files, {all_crowns} crowns "
+                    f"across {len(totals)} hosts (this host: "
+                    f"{len(outputs)}/{crowns})")
 
 
 if __name__ == "__main__":

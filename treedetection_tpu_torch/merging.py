@@ -124,10 +124,19 @@ def _seam_strip(a_path: str, b_path: str, horizontal: bool,
 
 def merge_and_crop_images(config: Dict[str, Any],
                           images_paths: List[str],
-                          height_paths: List[str]) -> None:
+                          height_paths: List[str],
+                          owned_images: Optional[set] = None,
+                          owned_heights: Optional[set] = None) -> None:
     """Generate seam strips for all right/down neighbor pairs; extends the two
     path lists in place with the synthetic rasters (reference
-    ``merging.py:10-119`` contract)."""
+    ``merging.py:10-119`` contract).
+
+    Multi-host: pass the FULL path lists (so the neighbor search sees every
+    raster, cross-host seam pairs included) plus ``owned_images`` /
+    ``owned_heights``, the primary (left/top) rasters THIS host generates
+    strips for.  Each seam strip is created by exactly one host, the owner
+    of its primary raster, and only the owner's list is extended with it.
+    ``None`` means single-host: own everything."""
     logger = config.get("logger")
     merged_directory = config["merged_path"]
     strip_w = int((config["tile_width"] + 2 * config["buffer"])
@@ -135,7 +144,8 @@ def merge_and_crop_images(config: Dict[str, Any],
     strip_h = int((config["tile_height"] + 2 * config["buffer"])
                   * config["overlapping_tiles_height"])
 
-    def process(paths: List[str], rgbi: bool) -> List[str]:
+    def process(paths: List[str], rgbi: bool,
+                owned: Optional[set]) -> List[str]:
         meta: Dict[str, Tuple[Affine, int, int]] = {}
         for f in paths:
             try:
@@ -148,6 +158,8 @@ def merge_and_crop_images(config: Dict[str, Any],
         created: List[str] = []
         valid = [f for f in meta]
         for f in valid:
+            if owned is not None and f not in owned:
+                continue
             _, right, _, down = retrieve_neighbors(f, valid, meta)
             directory = os.path.dirname(f)
             result_directory = os.path.join(directory, merged_directory)
@@ -171,8 +183,9 @@ def merge_and_crop_images(config: Dict[str, Any],
                         logger.error(f"Error merging {f} and {neighbor}: {exc}")
         return created
 
-    images_paths.extend(process(images_paths, rgbi=True))
-    height_paths.extend(process(height_paths, rgbi=False))
+    images_paths.extend(process(images_paths, rgbi=True, owned=owned_images))
+    height_paths.extend(process(height_paths, rgbi=False,
+                                owned=owned_heights))
 
 
 def merge_across_batches(config: Dict[str, Any],

@@ -22,8 +22,9 @@ same relation as (R, ceil(N/8)) uint8 in numpy's ``packbits`` order
 such a block on the card to its (i, j) pairs in ``np.nonzero``'s order.
 
 The CUDA source is ``csrc/pairwise_boxes.cu``, compiled with nvcc for
-``sm_90a`` at first use and bound with ctypes: one relation kernel for K2 and
-K3 in both forms, K4's own kernel, and the two compaction kernels.  Rounding
+``sm_90a`` at first use and bound with ctypes: one relation kernel for K2,
+K3 and K4 (K2 and K3 in both forms, K4 as the uint8 mask), and the two
+compaction kernels.  Rounding
 decides a threshold test, so the source is built with ``-fmad=false`` and
 keeps the plain versions' order of operations; the relations are then equal
 bit for bit, which is what ``chip_smoke.py`` and the card tests check.  For a

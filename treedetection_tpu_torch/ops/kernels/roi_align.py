@@ -77,6 +77,14 @@ H100_L2_BYTES = 50 * 1024 * 1024
 launches = 0            # K1
 launches_patches = 0    # K5
 launches_resident = 0   # K6
+_count_lock = threading.Lock()
+
+
+def _count(name: str) -> None:
+    """One launch more on the counter ``name``: a Predictor over several
+    devices launches from one thread per device."""
+    with _count_lock:
+        globals()[name] += 1
 
 _ARG_TYPES = {
     "roi_pool_flat": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
@@ -203,7 +211,6 @@ def roi_pool_patches_flat(fcat: torch.Tensor, rows: torch.Tensor,
     On the card, float32 features take ``pool_box`` and bfloat16 features
     ``pool_box_bf16``, which needs C a multiple of 8, ``patch`` at most 48
     and a 16-byte aligned ``fcat``; other bfloat16 inputs raise."""
-    global launches
     _check_common([fcat], {"rows": (rows, ()), "cols": (cols, ())}, ay, ax,
                   resolution, patch)
     n, c = rows.shape[0], fcat.shape[-1]
@@ -228,7 +235,7 @@ def roi_pool_patches_flat(fcat: torch.Tensor, rows: torch.Tensor,
                 _DTYPE_CODE[fcat.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"td_roi_pool_flat failed with CUDA error {rc}")
-    launches += 1
+    _count("launches")
     return out
 
 
@@ -312,7 +319,6 @@ def roi_pool_patches(fmaps_padded: Sequence[torch.Tensor], meta: torch.Tensor,
     ``pool_box``, bfloat16 features ``pool_box_bf16``, which needs C a
     multiple of 8, ``patch`` at most 48 and every level buffer 16-byte
     aligned; other bfloat16 inputs raise."""
-    global launches_patches
     _check_levels(fmaps_padded, meta, ay, ax, resolution, patch)
     if meta.shape[0]:
         _check_meta(meta, len(fmaps_padded))
@@ -337,7 +343,7 @@ def roi_pool_patches(fmaps_padded: Sequence[torch.Tensor], meta: torch.Tensor,
                 patch, c, _DTYPE_CODE[first.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"td_roi_pool_levels failed with CUDA error {rc}")
-    launches_patches += 1
+    _count("launches_patches")
     return out
 
 
@@ -457,7 +463,6 @@ def roi_pool_resident(fmaps_padded: Sequence[torch.Tensor], meta: torch.Tensor,
     C-block must also be a whole number of 32-channel slices.  Other
     bfloat16 inputs raise.
     """
-    global launches_resident
     _check_resident(fmaps_padded, meta, ay, ax, resolution, patch, chunk,
                     n_images, c_split)
     first = fmaps_padded[0]
@@ -487,7 +492,7 @@ def roi_pool_resident(fmaps_padded: Sequence[torch.Tensor], meta: torch.Tensor,
                 _DTYPE_CODE[first.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"td_roi_pool_resident failed with CUDA error {rc}")
-    launches_resident += 1
+    _count("launches_resident")
     return out
 
 

@@ -927,9 +927,19 @@ def process_single_file(gpkg_path: str, config: Dict[str, Any],
 def process_files_in_directory(config: Dict[str, Any], gpkg_dir: str,
                                image_paths: Sequence[str],
                                height_paths: Sequence[str],
-                               out_dir: Optional[str] = None) -> List[str]:
+                               out_dir: Optional[str] = None,
+                               only_stems: Optional[set] = None,
+                               all_stems: Optional[set] = None,
+                               orphan_owner: bool = True) -> List[str]:
     """Pair each stitched ``.gpkg`` with its RGBI + nDSM rasters and filter it
-    (reference ``process_files_in_directory``, ``postprocessing.py:945-1076``)."""
+    (reference ``process_files_in_directory``, ``postprocessing.py:945-1076``).
+
+    Multi-host: pass ``only_stems`` (the stems of THIS host's partitioned
+    image slice) so each stitched layer is processed by exactly one host;
+    without it every host would redo (and race-write) every file on shared
+    storage.  Layers whose stem matches no host's image (``all_stems``: every
+    host's), such as fusion outputs with other names, are taken by the
+    ``orphan_owner`` host."""
     logger = config.get("logger")
     out_dir = out_dir or gpkg_dir
     os.makedirs(out_dir, exist_ok=True)
@@ -951,6 +961,11 @@ def process_files_in_directory(config: Dict[str, Any], gpkg_dir: str,
     outputs: List[str] = []
     gpkgs = sorted(p for p in os.listdir(gpkg_dir)
                    if p.endswith(".gpkg") and not p.startswith("processed_"))
+    if only_stems is not None:
+        gpkgs = [p for p in gpkgs
+                 if Path(p).stem in only_stems
+                 or (orphan_owner and all_stems is not None
+                     and Path(p).stem not in all_stems)]
     todo: List[Tuple[str, str, Optional[str], Optional[str], bool]] = []
     for name in gpkgs:
         stem = Path(name).stem

@@ -12,7 +12,11 @@ Pipeline: a decode thread pool reads tiles ahead of the device, and one
 device thread dispatches each batch's forward and queues its device -> host
 copies, so batch k+1 is dispatched before batch k is fetched (one
 synchronization per batch); the main thread polygonizes batch k meanwhile.
-``prefetch_batches`` batches stay in flight.
+``prefetch_batches`` batches stay in flight.  Over several devices
+(``devices`` or ``mesh_shape``: ``parallel.make_mesh``) each batch splits
+into equal chunks, one model replica and one CUDA stream per device, and
+the outputs come back in tile order; the batch size is rounded up to a
+multiple of the device count.
 
 With ``eager_stitch`` (the default) the per-tile stitch transform (simplify
 + shrunk-box filter) runs at flush time on the rings already in memory, and
@@ -41,7 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from treedetection_tpu_torch.config import model_spec, select_device
+from treedetection_tpu_torch.config import model_spec
 from treedetection_tpu_torch.geo import Affine, GeoTiff
 from treedetection_tpu_torch.models.convert import load_checkpoint
 from treedetection_tpu_torch.models.mask_rcnn import (
@@ -49,6 +53,8 @@ from treedetection_tpu_torch.models.mask_rcnn import (
 from treedetection_tpu_torch.native import resize_threshold_mask, trace_contours
 from treedetection_tpu_torch.ops.image import normalize_bgr, resize_bilinear
 from treedetection_tpu_torch.ops.roi_align import report_overflow_host
+from treedetection_tpu_torch.parallel.mesh import (
+    make_mesh, replicate, sharded_forward)
 from treedetection_tpu_torch.preprocessing import load_tile_metadata
 
 # Timing and counters of the most recent Predictor run.
@@ -105,8 +111,9 @@ class Predictor:
     exclude_flag)``.
 
     ``config["device"]`` selects the torch device (default ``cuda``; see
-    ``config.select_device``).  ``mixed_precision`` runs the model in
-    bfloat16 on the GPU; on the CPU it always runs float32.
+    ``config.select_devices``), or ``config["devices"]`` several, which
+    split each batch (``parallel.make_mesh``).  ``mixed_precision`` runs the
+    model in bfloat16 on the GPU; on the CPU it always runs float32.
     """
 
     # eager stitch sink for the in-flight image (set per __call__); None
@@ -119,7 +126,8 @@ class Predictor:
         self.logger = config.get("logger")
         spec = model_spec(config)
         self.spec = spec
-        self.device = select_device(config.get("device", "cuda"))
+        self.devices = make_mesh(config)
+        self.device = self.devices[0]
         self.cfg = model_cfg or MaskRCNNConfig(
             depth=spec.depth,
             num_classes=spec.num_classes,
@@ -159,6 +167,12 @@ class Predictor:
         self.model = model.eval().requires_grad_(False).to(
             device=self.device, dtype=self.dtype)
         self.batch_size = int(config.get("batch_size", 10))
+        n_dev = len(self.devices)
+        if n_dev > 1:   # equal chunks per device
+            self.batch_size = -(-self.batch_size // n_dev) * n_dev
+        self._forward = sharded_forward(
+            self._forward_chunk, replicate(self.model, self.devices),
+            self.devices)
         # overflow counts summed over every image this Predictor has run
         self.total_roi_overflow = 0
         self.total_prop_overflow = 0
@@ -184,20 +198,26 @@ class Predictor:
             x = F.pad(x, (0, 0, 0, size - content, 0, size - content))
         return x
 
+    def _forward_chunk(self, model: MaskRCNN, device: torch.device,
+                       raw: torch.Tensor, pad: int) -> ModelOutput:
+        """One device's chunk: (b, pad, pad, 3) uint8 on the host -> its
+        ``ModelOutput`` copied to the host (queued on the current stream)."""
+        with torch.no_grad():
+            x = self.preprocess(raw.to(device, non_blocking=True), pad)
+            out = model(x)
+        return ModelOutput(*[t.to("cpu", non_blocking=True) for t in out])
+
     def _get_forward(self, pad: int):
         """-> (forward taking a (B, pad, pad, 3) uint8 numpy batch and
-        returning device ``ModelOutput``, box scale back to padded-tile
-        pixels)."""
+        returning [(host ``ModelOutput``, event that marks its arrival)] per
+        device in tile order, box scale back to padded-tile pixels)."""
         content = self._content(pad)
 
-        def forward(raw_tiles: np.ndarray) -> ModelOutput:
+        def forward(raw_tiles: np.ndarray) -> List[Tuple[ModelOutput, Any]]:
             raw = torch.from_numpy(raw_tiles)
             if self.device.type == "cuda":
                 raw = raw.pin_memory()
-            with torch.no_grad():
-                x = self.preprocess(raw.to(self.device, non_blocking=True),
-                                    pad)
-                return self.model(x)
+            return self._forward(raw, pad)
 
         return forward, pad / content
 
@@ -306,25 +326,25 @@ class Predictor:
         written = 0
 
         def run_batch(batch: np.ndarray):
-            """Device thread: dispatch the forward, queue the device -> host
-            copies, return them with the event that marks their arrival."""
+            """Device thread: dispatch the forward and queue the device ->
+            host copies; returns them with the events that mark their
+            arrival, one per device."""
             t0 = time.time()
-            out = forward(batch)
-            host = ModelOutput(*[t.to("cpu", non_blocking=True) for t in out])
-            event = None
-            if self.device.type == "cuda":
-                event = torch.cuda.Event()
-                event.record()
+            parts = forward(batch)
             stats["dispatch_s"] += time.time() - t0
-            return host, event
+            return parts
 
         def flush(batch_items, fut, sizes):
             nonlocal written
             t0 = time.time()
-            host, event = fut.result()
-            if event is not None:
-                event.synchronize()
-            out = ModelOutput(*[t.numpy() for t in host])
+            parts = fut.result()
+            for _, event in parts:
+                if event is not None:
+                    event.synchronize()
+            out = ModelOutput(*[
+                np.concatenate([p[k].numpy() for p, _ in parts])
+                if len(parts) > 1 else parts[0][0][k].numpy()
+                for k in range(len(ModelOutput._fields))])
             stats["fetch_s"] += time.time() - t0
             roi, prop = int(out.roi_overflow.sum()), int(out.prop_overflow.sum())
             stats["roi_overflow"] += roi

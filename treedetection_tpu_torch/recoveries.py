@@ -25,9 +25,20 @@ from treedetection_tpu_torch import flatyaml
 
 
 def _shard_suffix() -> str:
-    """Manifest shard id: the ``TREEDETECTION_HOST_ID`` environment variable
-    (empty for a single-host run)."""
+    """Manifest shard id: ``TREEDETECTION_HOST_ID``, else the
+    ``torch.distributed`` rank when a group of more than one process is
+    initialised, else none (single-host).
+
+    It reads the group's state only and initialises neither CUDA nor a
+    group.  Without the rank, every host of a torchrun launch that does not
+    set the variable would write the SAME manifest path, and the last
+    writer would drop the other hosts' progress."""
     host = os.environ.get("TREEDETECTION_HOST_ID")
+    if host is None:
+        from treedetection_tpu_torch.parallel.mesh import (
+            process_count, process_index)
+        if process_count() > 1:
+            host = str(process_index())
     return f".{host}" if host else ""
 
 
