@@ -5,7 +5,8 @@
 
 Phases (each prints JSON lines; any failure exits non-zero).  ``--phases``
 takes a comma-separated subset of
-build,kernel,predictor,model,pipeline,pipeline_multihost,pipeline_two_model:
+build,kernel,predictor,model,pipeline,pipeline_multihost,pipeline_two_model,
+train:
 
 1. build     — compile the port's native libraries from the sources in the
                checkout (one nvcc per CUDA kernel source, g++ for the host
@@ -72,7 +73,20 @@ build,kernel,predictor,model,pipeline,pipeline_multihost,pipeline_two_model:
                one Predictor pass over the 16-tile raster of phase 3 under
                ``TD_ROI_RESIDENT=1`` (K6), which must write that phase's
                flat pass's tile files byte for byte.
-7. kernels   — the per-kernel summary line, then the card's name and power
+7. train     — the port's trainer at example/train_full.py's width: a
+               synthetic RGBI raster with crown discs and their polygons as
+               a GPKG, cut into 1024^2 uint8 shards (50 m tiles, 20 m
+               buffer, max_gt 48) and split 0.15; R50 from scratch (batch
+               norm, bf16, remat, batch 4, 1000/512 proposals, preset
+               scratch, freeze 0) for 30 steps with one validation, then the
+               same with remat off (the first loss equal; peak GiB of
+               each); the example checkpoint fine-tuned 10 steps on one
+               batch (preset update: the loss falls, stem and res2-res3
+               bit-unchanged, the heads changed); one fp32 step at 256^2 on
+               the card held against the same step on the CPU; the
+               from-scratch weights folded, saved and served by the
+               Predictor over phase 3's raster (K1 twice per batch).
+8. kernels   — the per-kernel summary line, then the card's name and power
                limit, then the final status line.
 
 Imports nothing of JAX.  Exits non-zero without a result when CUDA is not
@@ -101,7 +115,7 @@ H100_BYTES_PER_S = 3.35e12          # HBM3, SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,     # CUDA cores, no tensor cores
               "bfloat16": 989e12}   # dense tensor cores
 PHASES = ("build", "kernel", "predictor", "model", "pipeline",
-          "pipeline_multihost", "pipeline_two_model")
+          "pipeline_multihost", "pipeline_two_model", "train")
 ROI_LIBRARIES = ("roi_pool_flat", "roi_pool_levels", "roi_pool_resident")
 K6_CHUNKS = (1, 2, 4, 8, 16, 32)   # boxes per block timed in the kernel phase
 PAIRWISE_BLOCK_ROWS, PAIRWISE_COLS = 8192, 32768   # one production row block
@@ -981,9 +995,9 @@ def _time_pairwise(pw, mode, calls, b, a, rows, t, bits, start, shape,
 
 # --- phase 3: the Predictor at full width ------------------------------------
 
-def write_synthetic_raster(path: Path, seed: int = 0) -> None:
+def write_synthetic_raster(path: Path, seed: int = 0):
     """1000x1000 px RGBI at 0.2 m: dark crown-like discs of 2-8 m radius on
-    a lighter ground, with noise."""
+    a lighter ground, with noise -> the discs as (row, col, radius) px."""
     from treedetection_tpu_torch.geo import Affine, write_geotiff
     rng = np.random.default_rng(seed)
     h = w = 1000
@@ -991,9 +1005,11 @@ def write_synthetic_raster(path: Path, seed: int = 0) -> None:
     img[..., :3] = rng.normal([150, 160, 120], 12, (h, w, 3))
     img[..., 3] = rng.normal(110, 10, (h, w))
     yy, xx = np.mgrid[0:h, 0:w]
+    discs = []
     for _ in range(180):
         cy, cx = rng.uniform(0, h), rng.uniform(0, w)
         rad = rng.uniform(2.0, 8.0) / 0.2
+        discs.append((cy, cx, rad))
         d2 = ((yy - cy) ** 2 + (xx - cx) ** 2) / rad ** 2
         inside = d2 < 1.0
         shade = 0.55 + 0.3 * d2[inside]
@@ -1004,6 +1020,7 @@ def write_synthetic_raster(path: Path, seed: int = 0) -> None:
     write_geotiff(str(path), np.clip(img, 0, 255).astype(np.uint8),
                   Affine.from_origin(412000.0, 5318000.0, 0.2, 0.2),
                   crs=25832)
+    return discs
 
 
 def predictor_config(workdir: Path, **over):
@@ -1056,15 +1073,7 @@ def phase_predictor(state, workdir: Path):
     stats = dict(prediction.LAST_RUN_STATS)
     batches = int(stats["batches"])
     files = sorted(out2.glob("Prediction_*.json"))
-    crowns = 0
-    for f in files:
-        for crown in json.loads(f.read_text()):
-            ring = np.asarray(crown["polygon_coords"][0], dtype=np.float64)
-            if ring.ndim != 2 or ring.shape[1] != 2 or \
-                    not np.isfinite(ring).all() or \
-                    not 0.0 < crown["score"] <= 1.0:
-                fail(f"predictor: malformed crown in {f.name}")
-            crowns += 1
+    crowns = _count_crowns(files, "predictor")
     first = sorted(out1.glob("Prediction_*.json"))
     if [f.name for f in first] != [f.name for f in files]:
         fail("predictor: the two passes wrote different tiles")
@@ -1087,6 +1096,20 @@ def phase_predictor(state, workdir: Path):
     state["predictor"] = row
     state["tif"], state["meta"], state["pred"] = tif, meta, pred
     state["pred_timed_dir"] = out2
+
+
+def _count_crowns(files, phase: str) -> int:
+    """Crowns in the Predictor's tile files; fails on a malformed one."""
+    crowns = 0
+    for f in files:
+        for crown in json.loads(f.read_text()):
+            ring = np.asarray(crown["polygon_coords"][0], dtype=np.float64)
+            if ring.ndim != 2 or ring.shape[1] != 2 or \
+                    not np.isfinite(ring).all() or \
+                    not 0.0 < crown["score"] <= 1.0:
+                fail(f"{phase}: malformed crown in {f.name}")
+            crowns += 1
+    return crowns
 
 
 def _tile_files(pred_dir: Path):
@@ -1949,7 +1972,237 @@ def phase_pipeline_two_model(state, workdir: Path):
     state["resident"] = row
 
 
-# --- phase 7: summary ----------------------------------------------------------
+# --- phase 7: training ---------------------------------------------------------
+
+# example/train_full.py's configuration: R50, 1024^2, batch 4, 1000/512
+# proposals, 100 detections, bf16, remat, batch norm, preset scratch,
+# freeze 0; the tiles 50 m with a 20 m buffer, max_gt 48, uint8 shards of 8
+TRAIN_SIZE = 1024
+TRAIN_BATCH = 4
+TRAIN_STEPS = 30           # one validation, at the last step
+TRAIN_TIMING_WARMUP = 3    # steps left out of the median s/step
+FINETUNE_STEPS = 10
+CHECK_SIZE = 256           # the fp32 step held card against CPU
+CHECK_DEVICES = ("cuda", "cpu")
+# the tensors whose gradients the card-against-CPU step compares
+CHECK_GRADS = ("backbone.bottom_up.stem.conv.weight",
+               "backbone.bottom_up.res5.0.conv2.conv.weight",
+               "backbone.fpn.output2.weight", "rpn_head.conv.weight",
+               "box_head.fc1.weight", "mask_head.mask_fcn1.weight")
+# card against CPU, fp32 without TF32: each loss term within LOSS_RTOL of
+# the CPU's; each named gradient within GRAD_L2_RTOL of the CPU's in L2 (a
+# pre-activation that rounds to the other side of 0 on one device moves
+# one position's contribution, so a max-abs bound would read rounding noise)
+LOSS_RTOL = 1e-4
+GRAD_L2_RTOL = 1e-2
+
+
+def write_training_labels(tif: Path, gpkg: Path, seed: int = 1) -> int:
+    """The synthetic raster's generator with its crown discs as polygons
+    (32-gons in map coordinates) -> the number of crowns."""
+    from treedetection_tpu_torch.vector import write_gpkg
+    tif.parent.mkdir(parents=True, exist_ok=True)
+    discs = write_synthetic_raster(tif, seed=seed)
+    t = np.linspace(0.0, 2 * np.pi, 32, endpoint=False)
+    rings = [np.stack([412000.0 + (cx + rad * np.cos(t)) * 0.2,
+                       5318000.0 - (cy + rad * np.sin(t)) * 0.2], axis=1)
+             for cy, cx, rad in discs]
+    write_gpkg(str(gpkg), rings, [{"Confidence_score": 1.0}] * len(rings))
+    return len(rings)
+
+
+def _train_run(train_model, ds, val, cfg, tc, **kw):
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state_dict, hist = train_model(ds, val_dataset=val, model_cfg=cfg,
+                                   train_cfg=tc, **kw)
+    torch.cuda.synchronize()
+    losses = hist["total_loss"]
+    if not all(math.isfinite(v) for v in losses + hist["val_loss"]):
+        fail(f"train: non-finite loss {losses} {hist['val_loss']}")
+    return state_dict, hist, {
+        "steps": len(losses), "wall_s": time.time() - t0,
+        "s_per_step_median": statistics.median(
+            hist["step_s"][TRAIN_TIMING_WARMUP:]),
+        "first_step_s": hist["step_s"][0],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "val_loss": hist["val_loss"]}
+
+
+def phase_train(state, workdir: Path):
+    import dataclasses
+    import torch
+    from treedetection_tpu_torch import prediction
+    from treedetection_tpu_torch.models.convert import (
+        fold_batch_stats, load_checkpoint, save_checkpoint_npz,
+        to_flax_params)
+    from treedetection_tpu_torch.models.mask_rcnn import (
+        MaskRCNN, MaskRCNNConfig)
+    from treedetection_tpu_torch.ops.kernels import roi_align as k1
+    from treedetection_tpu_torch.train import TrainConfig, train_model
+    from treedetection_tpu_torch.train.data import (
+        ShardDataset, make_training_tiles, train_test_split, write_shards)
+    from treedetection_tpu_torch.train.train import (
+        _frozen_prefixes, make_optimizer, make_train_step)
+    _clear_layout_env()
+    t_phase = time.time()
+    tdir = workdir / "train"
+    tif, gpkg = tdir / "rgb.tif", tdir / "crowns.gpkg"
+    n_crowns = write_training_labels(tif, gpkg)
+
+    # 1. tiles and shards, as train_full.py cuts them
+    t0 = time.time()
+    shards = write_shards(make_training_tiles(
+        str(tif), str(gpkg), tile_size_m=50, buffer_m=20,
+        input_size=TRAIN_SIZE, max_gt=48, store_uint8=True),
+        str(tdir / "shards"), shard_size=8)
+    (train_shards, val_shards), = train_test_split(shards, 0.15)
+    shards_s = time.time() - t0
+    with np.load(shards[0]) as z:
+        shapes = {k: (list(z[k].shape), str(z[k].dtype)) for k in z.files}
+    if shapes["image"][0][1:] != [TRAIN_SIZE, TRAIN_SIZE, 3] or \
+            shapes["masks"][0][1:] != [48, TRAIN_SIZE // 4, TRAIN_SIZE // 4] \
+            or not train_shards or not val_shards:
+        fail(f"train: shards {shapes}, train {train_shards}, val "
+             f"{val_shards}")
+
+    # 2. from scratch at train_full.py's width, with remat and without
+    mc = MaskRCNNConfig(depth=50, input_size=TRAIN_SIZE,
+                        rpn_pre_nms_topk=1000, rpn_post_nms_topk=512,
+                        max_detections=100, bf16=True, remat=True,
+                        norm="batch")
+    tc = TrainConfig.from_preset(
+        "scratch", max_iter=TRAIN_STEPS, ims_per_batch=TRAIN_BATCH,
+        max_gt=48, backbone_freeze=0, eval_period=TRAIN_STEPS, patience=10,
+        max_eval_batches=2)
+    runs = {}
+    for remat in (True, False):
+        sd, _, runs[f"remat_{'on' if remat else 'off'}"] = _train_run(
+            train_model, ShardDataset(train_shards, TRAIN_BATCH),
+            ShardDataset(val_shards, TRAIN_BATCH, shuffle=False),
+            dataclasses.replace(mc, remat=remat), tc)
+        if remat:
+            trained = {k: v.cpu() for k, v in sd.items()}
+        del sd
+    on, off = runs["remat_on"], runs["remat_off"]
+    first_equal = abs(on["loss_first"] - off["loss_first"]) <= \
+        1e-6 * abs(off["loss_first"])
+
+    # 3. fine-tune the example checkpoint (preset update: freeze 3, frozen
+    # norm) on one fixed batch
+    init = load_checkpoint(str(NPZ), depth=50)
+    fixed = next(iter(ShardDataset(train_shards, TRAIN_BATCH,
+                                   shuffle=False)))
+    ft_sd, _, finetune = _train_run(
+        train_model, [fixed], None,
+        dataclasses.replace(mc, norm="frozen"),
+        TrainConfig.from_preset("update", max_iter=FINETUNE_STEPS,
+                                ims_per_batch=TRAIN_BATCH, max_gt=48),
+        init_params=init)
+    prefixes = tuple(_frozen_prefixes(3))
+    frozen_same = all(torch.equal(ft_sd[k].cpu(), v)
+                      for k, v in init.items() if k.startswith(prefixes))
+    heads = ("rpn_head.conv.weight", "box_head.fc1.weight",
+             "mask_head.predictor.weight")
+    heads_changed = all(not torch.equal(ft_sd[k].cpu(), init[k])
+                        for k in heads)
+    finetune.update(frozen_unchanged=frozen_same, heads_changed=heads_changed,
+                    frozen_tensors=sum(k.startswith(prefixes) for k in init))
+    del ft_sd
+
+    # 4. one fp32 step at CHECK_SIZE on the card and on the CPU
+    ex = make_training_tiles(str(tif), str(gpkg), tile_size_m=50,
+                             buffer_m=20, input_size=CHECK_SIZE, max_gt=48,
+                             store_uint8=True)
+    small = [next(ex), next(ex)]
+    batch = {k: np.stack([e[k] for e in small]) for k in small[0]}
+    cfg32 = dataclasses.replace(mc, input_size=CHECK_SIZE, bf16=False,
+                                remat=False, norm="frozen")
+    step_out = {}
+    for dev in CHECK_DEVICES:
+        model = MaskRCNN(cfg32)
+        model.load_state_dict(init)
+        model.to(dev)
+        step = make_train_step(model, make_optimizer(
+            TrainConfig.from_preset("update", backbone_freeze=0), model))
+        metrics = step({k: torch.from_numpy(v).to(dev)
+                        for k, v in batch.items()})
+        params = dict(model.named_parameters())
+        step_out[dev] = ({k: float(v) for k, v in metrics.items()},
+                         {n: params[n].grad.detach().cpu().double()
+                          for n in CHECK_GRADS})
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = (step_out[d] for d in CHECK_DEVICES)
+    loss_rel = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
+                for k in m_cpu}
+    grad_l2 = {n: float((g_gpu[n] - g_cpu[n]).norm()
+                        / max(float(g_cpu[n].norm()), 1e-30))
+               for n in CHECK_GRADS}
+    grad_max = {n: float((g_gpu[n] - g_cpu[n]).abs().max()
+                         / max(float(g_cpu[n].abs().max()), 1e-30))
+                for n in CHECK_GRADS}
+
+    # 5. serve the from-scratch checkpoint, folded, through the Predictor
+    npz = tdir / "trained.npz"
+    save_checkpoint_npz(str(npz), fold_batch_stats(to_flax_params(trained)))
+    pred = prediction.Predictor(predictor_config(workdir), str(npz))
+    if pred.used_random_init:
+        fail("train: the trained checkpoint did not load")
+    out = workdir / "pred_trained"
+    _reset_roi_launches(k1)               # just before the serving pass
+    written = pred(str(state["tif"]), state["meta"], str(out))
+    torch.cuda.synchronize()
+    counts = _roi_launches(k1)            # just after
+    batches = int(prediction.LAST_RUN_STATS["batches"])
+    files = sorted(out.glob("Prediction_*.json"))
+    crowns = _count_crowns(files, "train")
+
+    row = {"phase": "train", "crowns_labelled": n_crowns,
+           "shards": len(shards), "train_shards": len(train_shards),
+           "val_shards": len(val_shards), "shard_arrays": shapes,
+           "shards_s": shards_s, "config": {
+               "depth": 50, "input_size": TRAIN_SIZE, "batch": TRAIN_BATCH,
+               "proposals": [1000, 512], "bf16": True, "norm": "batch",
+               "preset": "scratch", "freeze": 0},
+           **runs, "remat_first_loss_equal": first_equal,
+           "remat_saves_gib": off["peak_gib"] - on["peak_gib"],
+           "finetune": finetune,
+           "card_vs_cpu": {"size": CHECK_SIZE, "dtype": "float32",
+                           "tf32": False, "loss_gpu": m_gpu,
+                           "loss_rel_err": loss_rel,
+                           "grad_l2_rel_err": grad_l2,
+                           "grad_max_rel_err": grad_max,
+                           "tolerance": {"loss_rtol": LOSS_RTOL,
+                                         "grad_l2_rtol": GRAD_L2_RTOL}},
+           "serve": {"tiles": written, "files": len(files),
+                     "batches": batches, "crowns": crowns,
+                     "launches": counts,
+                     "npz_mb": npz.stat().st_size / 1e6},
+           "k1_launches": counts["k1"],
+           "seconds": time.time() - t_phase}
+    emit(row)
+    if not first_equal:
+        fail(f"train: the first loss differs with remat on and off: "
+             f"{on['loss_first']} vs {off['loss_first']}")
+    if not finetune["loss_last"] < finetune["loss_first"]:
+        fail(f"train: the fine-tune loss did not fall: {finetune}")
+    if not frozen_same or not heads_changed:
+        fail(f"train: fine-tune frozen stages unchanged {frozen_same}, "
+             f"heads changed {heads_changed}")
+    if max(loss_rel.values()) > LOSS_RTOL or \
+            max(grad_l2.values()) > GRAD_L2_RTOL:
+        fail(f"train: the card's step disagrees with the CPU's: losses "
+             f"{loss_rel}, gradients {grad_l2}")
+    if written != 16 or len(files) != 16:
+        fail(f"train: served {written} tiles, {len(files)} files")
+    if counts != {"k1": 2 * batches, "k5": 0, "k6": 0}:
+        fail(f"train: launches {counts} for {batches} batches (expected K1 "
+             f"twice per batch and no other)")
+    state["train"] = row
+
+
+# --- phase 8: summary ----------------------------------------------------------
 
 ROI_KERNELS = {   # key -> (number, wrapper, source, the TPU kernel's line)
     "k1": ("K1", "roi_pool_patches_flat", "roi_pool_flat.cu", 172),
@@ -2004,7 +2257,8 @@ def kernels_line(state):
                     "predictor": state["predictor"]["k1_launches"],
                     "predictor_split":
                     state["predictor_split"]["launches"]["k1"],
-                    "pipeline_two_model": two["launches"]["k1"]}, ""),
+                    "pipeline_two_model": two["launches"]["k1"],
+                    "train": state["train"]["k1_launches"]}, ""),
         _roi_entry("k5", {"": roi["k5"]}, two["launches"]["k5"],
                    {"pipeline_two_model": two["launches"]["k5"],
                     "predictor_levels":
@@ -2106,6 +2360,9 @@ def main() -> None:
     if "pipeline_multihost" in phases and "pipeline" not in phases:
         fail("the pipeline_multihost phase reruns the pipeline phase's "
              "sheets: name both")
+    if "train" in phases and "predictor" not in phases:
+        fail("the train phase serves on the predictor phase's raster: name "
+             "both")
     if not (REPO / "treedetection_tpu_torch" / "__init__.py").is_file():
         fail("the treedetection_tpu_torch package is not beside this script")
     sys.path.insert(0, str(REPO))
@@ -2140,6 +2397,8 @@ def main() -> None:
             phase_pipeline_multihost(state, work)
         if "pipeline_two_model" in phases:
             phase_pipeline_two_model(state, work)
+        if "train" in phases:
+            phase_train(state, work)
     if set(phases) == set(PHASES):
         emit(kernels_line(state))
     emit({"phase": "done", "seconds": round(time.time() - t_start, 3)})

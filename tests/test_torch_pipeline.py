@@ -24,7 +24,8 @@ from treedetection_tpu_torch.preprocessing import tile_single_file
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "treedetection_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "cv2", "treedetection_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "cv2", "optax", "orbax",
+             "treedetection_tpu")
 
 PRED_CFG = {"model_depth": 50, "model_input_size": 128,
             "mixed_precision": False, "rpn_approx_topk_from": 0,
@@ -288,9 +289,9 @@ def _imports(path: Path):
 
 
 def test_port_never_imports_jax_statically():
-    """No jax, flax, cv2 or treedetection_tpu anywhere in the port or in
-    chip_smoke.py (the string ``treedetection_tpu.`` does not even occur),
-    and yaml only inside ``config.load_config``."""
+    """No jax, flax, optax, orbax, cv2 or treedetection_tpu anywhere in the
+    port or in chip_smoke.py (the string ``treedetection_tpu.`` does not
+    even occur), and yaml only inside ``config.load_config``."""
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 30
     for f in files:
@@ -310,6 +311,7 @@ def test_port_never_imports_jax_statically():
         "contour.cpp"]
     assert {"compat.py", "cli.py"} <= {f.name for f in files}
     assert PORT / "parallel" / "mesh.py" in files
+    assert PORT / "train" / "train.py" in files
 
 
 @pytest.mark.parametrize("name", ["config.yml", "config_r101.yml"])

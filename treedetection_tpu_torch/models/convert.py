@@ -2,13 +2,15 @@
 port's torch state dict.
 
 Numpy half of ``treedetection_tpu/models/convert.py`` (the ``.npz`` reader
-and the scanned <-> unrolled backbone restack) plus :func:`from_flax_params`,
-which carries a Flax tree across to :class:`~treedetection_tpu_torch.models.
-mask_rcnn.MaskRCNN`:
+and writer, the scanned <-> unrolled backbone restack, the fold of batch
+statistics) plus :func:`from_flax_params`, which carries a Flax tree across
+to :class:`~treedetection_tpu_torch.models.mask_rcnn.MaskRCNN`, and its
+inverse :func:`to_flax_params`:
 
 * conv kernels HWIO -> OIHW;
 * ``res{s}_rest/block`` stacked leaves split into ``res{s}.{i}`` modules;
-* FrozenBN ``scale``/``bias`` kept as buffers;
+* norm ``scale``/``bias`` kept as they are; ``batch_stats`` ``mean``/``var``
+  become the batch-norm modules' buffers of the same names;
 * Dense ``(in, out)`` -> Linear ``(out, in)`` — ``fc1`` keeps the HWC input
   order the (N, R, R, C) pooled layout implies;
 * the ConvTranspose kernel un-flipped back to torch's ``(in, out, kh, kw)``;
@@ -24,12 +26,15 @@ torch's CHW flatten of the pooled feature to the HWC flatten of this model's
 
 from __future__ import annotations
 
+import logging
+import os
 import re
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
+from treedetection_tpu_torch.config import LOGGER_NAME
 from treedetection_tpu_torch.models.resnet import STAGE_BLOCKS
 
 BN_EPS = 1e-5  # detectron2 FrozenBatchNorm2d epsilon
@@ -137,9 +142,9 @@ def _torch_key(path: list) -> str:
 
 
 def from_flax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax Mask R-CNN param tree (``{"params": ...}`` or the bare params,
-    scanned or unrolled backbone) -> ``MaskRCNN`` state dict (float32)."""
-    params = restack_backbone(tree.get("params", tree), scan=False)
+    """Flax Mask R-CNN variables (``{"params": ...}`` with or without
+    ``"batch_stats"``, or the bare params; scanned or unrolled backbone) ->
+    ``MaskRCNN`` state dict (float32)."""
     sd: Dict[str, torch.Tensor] = {}
 
     def rec(path, node):
@@ -149,8 +154,121 @@ def from_flax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         else:
             sd[_torch_key(path)] = torch.from_numpy(_torch_leaf(path, node))
 
-    rec([], params)
+    rec([], restack_backbone(tree.get("params", tree), scan=False))
+    if tree.get("batch_stats"):
+        rec([], restack_backbone(tree["batch_stats"], scan=False))
     return sd
+
+
+def _flax_leaf(key: str, t: torch.Tensor) -> np.ndarray:
+    """One state-dict entry -> its Flax layout (float32): the inverse of
+    :func:`_torch_leaf`."""
+    a = t.detach().to(device="cpu", dtype=torch.float32).numpy()
+    if not key.endswith(".weight"):
+        return a
+    if ".deconv." in key:       # torch (in, out, kh, kw) -> flipped HWIO
+        return np.ascontiguousarray(np.transpose(a, (2, 3, 0, 1))[::-1, ::-1])
+    if a.ndim == 4:             # conv OIHW -> HWIO
+        return np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0)))
+    if a.ndim == 2:             # dense (out, in) -> (in, out)
+        return np.ascontiguousarray(a.T)
+    raise ValueError(f"unexpected weight rank {a.ndim} at {key}")
+
+
+def to_flax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """``MaskRCNN`` state dict -> Flax variables in the scanned backbone
+    layout: ``{"params": ...}``, plus ``"batch_stats"`` when the model has
+    batch norm.  The inverse of :func:`from_flax_params`; with
+    :func:`fold_batch_stats` and :func:`save_checkpoint_npz` it writes a
+    checkpoint that both packages' ``load_checkpoint`` read."""
+    trees: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for key, t in state_dict.items():
+        parts = key.split(".")
+        path = []
+        for i, p in enumerate(parts[:-1]):
+            if p.isdigit() and re.match(r"res\d+$", parts[i - 1]):
+                path[-1] = f"{path[-1]}_{p}"
+            else:
+                path.append(p)
+        leaf = parts[-1]
+        kind = "batch_stats" if leaf in ("mean", "var") else "params"
+        node = trees[kind]
+        for p in path:
+            node = node.setdefault(p, {})
+        node["kernel" if leaf == "weight" else leaf] = _flax_leaf(key, t)
+    return {k: restack_backbone(v, scan=True) for k, v in trees.items() if v}
+
+
+def fold_batch_stats(variables: Mapping[str, Any],
+                     eps: float = BN_EPS) -> Dict[str, Any]:
+    """Fold a batch-norm-trained checkpoint (``{"params", "batch_stats"}``)
+    into the frozen serving layout: every norm with (scale, bias) params and
+    (mean, var) statistics becomes ``fold_frozen_bn``'s (scale, bias).
+    Returns ``{"params": ...}`` with the tree a frozen model has; without
+    batch_stats the params come back unchanged."""
+    params = variables.get("params", variables)
+    stats = variables.get("batch_stats") or {}
+
+    def rec(p, s):
+        if isinstance(p, Mapping):
+            out = {}
+            for k, v in p.items():
+                if k in (s or {}) and isinstance(s[k], Mapping) \
+                        and set(s[k].keys()) == {"mean", "var"} \
+                        and set(v.keys()) >= {"scale", "bias"}:
+                    gamma = np.asarray(v["scale"], np.float32)
+                    beta = np.asarray(v["bias"], np.float32)
+                    mean = np.asarray(s[k]["mean"], np.float32)
+                    var = np.asarray(s[k]["var"], np.float32)
+                    scale, bias = fold_frozen_bn(gamma, beta, mean, var, eps)
+                    out[k] = {"scale": scale, "bias": bias}
+                else:
+                    out[k] = rec(v, (s or {}).get(k))
+            return out
+        return np.asarray(p)
+
+    return {"params": rec(params, stats)}
+
+
+def save_checkpoint_npz(path: str, params: Dict[str, Any],
+                        dtype=np.float16) -> None:
+    """Write a param tree to one compressed ``.npz`` (keys are ``/``-joined
+    paths), atomically.  Leaves are stored in ``dtype`` (fp16 halves the
+    file) unless that corrupts them: a leaf that overflows to inf, a small
+    tensor (< 10 000 entries: norm affines) with any nonzero value flushed to
+    0, or a large one with more than 1% of its nonzero values flushed stays
+    float32; a large tensor with fewer flushed values is stored in fp16 with
+    a warning."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def rec(prefix, tree):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                rec(f"{prefix}/{k}" if prefix else k, v)
+            return
+        src = np.asarray(tree)
+        with np.errstate(over="ignore"):
+            cast = src.astype(dtype)
+        if dtype == np.float16 and src.size:
+            finite = np.isfinite(src)
+            flushed = (src != 0) & finite & (cast == 0)
+            n_flushed = int(flushed.sum())
+            nonzero = max(int(((src != 0) & finite).sum()), 1)
+            small = src.size < 10_000
+            if (not np.isfinite(cast[finite]).all()
+                    or (n_flushed > 0 if small
+                        else n_flushed / nonzero > 0.01)):
+                cast = src.astype(np.float32)
+            elif n_flushed:
+                logging.getLogger(LOGGER_NAME).warning(
+                    f"fp16 checkpoint save flushed {n_flushed} tiny "
+                    f"value(s) to zero in {prefix!r} ({src.size} entries)")
+        flat[prefix] = cast
+
+    rec("", params)
+    tmp = path + ".tmp.npz"
+    np.savez_compressed(tmp, **flat)
+    os.replace(tmp, path)
 
 
 def _to_numpy(t) -> np.ndarray:

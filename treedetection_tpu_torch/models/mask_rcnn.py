@@ -8,7 +8,12 @@ detection NMS -> mask ROIAlign (K1) -> mask head.
 
 The compute dtype is the dtype of the module's parameters: call
 ``model.to(torch.bfloat16)`` for the mixed-precision serving path (box
-coordinates, scores and hat matrices stay float32 either way).
+coordinates, scores and hat matrices stay float32 either way).  Training
+sets ``bf16`` in the config instead: the parameters stay float32 and every
+conv and dense layer casts them, with its input, to bfloat16 at each call,
+as Flax's ``dtype`` does.  ``norm`` and ``remat`` select the backbone's
+norm and recomputation (``models/resnet.py``); :func:`create_model`
+initialises as Flax does.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import torch
 from torch import nn
 
 from treedetection_tpu_torch.models.anchors import pyramid_anchors
+from treedetection_tpu_torch.models.layers import (
+    init_like_flax, set_compute_dtype)
 from treedetection_tpu_torch.models.resnet import ResNetFPN
 from treedetection_tpu_torch.models.roi_heads import (
     BoxHead, MaskHead, box_inference)
@@ -45,6 +52,13 @@ class MaskRCNNConfig:
     box_pool: int = 7
     anchor_sizes: Tuple[int, ...] = (32, 64, 128, 256, 512)
     anchor_ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)
+    # training: compute in bfloat16 over float32 parameters (the serving
+    # path moves the whole model to bfloat16 instead, so the default is off)
+    bf16: bool = False
+    remat: bool = False     # recompute each bottleneck in the backward pass
+    # backbone norm: "frozen" (serving, fine-tuning converted checkpoints) or
+    # "batch" (from-scratch training; fold_batch_stats before serving)
+    norm: str = "frozen"
 
 
 class ModelOutput(NamedTuple):
@@ -68,13 +82,21 @@ class MaskRCNN(nn.Module):
     def __init__(self, cfg: MaskRCNNConfig = MaskRCNNConfig()):
         super().__init__()
         self.cfg = cfg
-        self.backbone = ResNetFPN(depth=cfg.depth)
+        self.backbone = ResNetFPN(depth=cfg.depth, norm=cfg.norm,
+                                  remat=cfg.remat)
         self.rpn_head = RPNHead(num_anchors=len(cfg.anchor_ratios))
         self.box_head = BoxHead(in_features=256 * cfg.box_pool ** 2,
                                 num_classes=cfg.num_classes)
         self.mask_head = MaskHead(num_classes=cfg.num_classes)
         # float32 anchors per device (not buffers: .to(bf16) must not touch them)
         self._anchors: Dict[torch.device, list] = {}
+        if cfg.bf16:
+            set_compute_dtype(self, torch.bfloat16)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return (torch.bfloat16 if self.cfg.bf16
+                else next(self.parameters()).dtype)
 
     def anchors(self, device: torch.device) -> list:
         if device not in self._anchors:
@@ -93,10 +115,9 @@ class MaskRCNN(nn.Module):
         replaces the flat layout's pooler, e.g. by K1's plain version; it is
         refused with another layout."""
         c = self.cfg
-        dtype = next(self.parameters()).dtype
+        dtype = self.compute_dtype
         b = images.shape[0]
-        feats = self.backbone(images.to(dtype))              # [P2..P6] NHWC
-        logits, deltas = self.rpn_head(feats)
+        feats, logits, deltas = self.forward_features(images)
         props = generate_proposals(
             logits, deltas, self.anchors(images.device), c.input_size,
             c.rpn_pre_nms_topk, c.rpn_post_nms_topk, c.rpn_nms_threshold)
@@ -128,3 +149,25 @@ class MaskRCNN(nn.Module):
                            classes=det.classes, valid=det.valid, masks=masks,
                            roi_overflow=degraded.to(torch.int32),
                            prop_overflow=top_prop_trunc.to(torch.int32))
+
+    def forward_features(self, images: torch.Tensor):
+        """Backbone + RPN head: normalized (B, S, S, 3) -> ([P2..P6] NHWC,
+        RPN logits per level, RPN deltas per level), in the compute dtype."""
+        feats = self.backbone(images.to(self.compute_dtype))
+        logits, deltas = self.rpn_head(feats)
+        return feats, logits, deltas
+
+
+def create_model(cfg: Optional[MaskRCNNConfig] = None,
+                 generator: Optional[torch.Generator] = None) -> MaskRCNN:
+    """A randomly initialised model on the CPU, from Flax's initialisers:
+    conv, deconv and dense kernels ``lecun_normal``, biases 0, norm scales 1
+    (0 on each bottleneck's ``conv3`` under batch norm), running mean 0 and
+    variance 1.  ``generator`` defaults to one seeded with 0.  Use
+    ``models.convert`` to load a checkpoint."""
+    cfg = cfg or MaskRCNNConfig()
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    model = MaskRCNN(cfg)
+    init_like_flax(model, generator)
+    return model

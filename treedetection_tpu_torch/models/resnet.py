@@ -1,9 +1,16 @@
-"""ResNet-50/101 + FPN backbone (frozen BN), NCHW inside.
+"""ResNet-50/101 + FPN backbone, NCHW inside, with frozen or batch norm.
 
 Counterpart of ``treedetection_tpu/models/resnet.py``: caffe-style
-bottlenecks with the stride on the first 1x1 conv, frozen batch-norm as
-``x * scale + bias``, a 3x3/2 stem max-pool, FPN with 256 channels, nearest
-top-down upsampling and P6 as a stride-2 subsample of P5.
+bottlenecks with the stride on the first 1x1 conv, a 3x3/2 stem max-pool,
+FPN with 256 channels, nearest top-down upsampling and P6 as a stride-2
+subsample of P5.  The norm is ``"frozen"`` (``x * scale + bias``: serving,
+and fine-tuning converted checkpoints) or ``"batch"`` (from-scratch
+training: statistics of the batch, in float32, with running averages kept
+only for the fold at save; ``models.convert.fold_batch_stats`` turns them
+into the frozen layout).  Both keep their affine as the parameters
+``norm.scale`` and ``norm.bias``, the running averages are the buffers
+``norm.mean`` and ``norm.var``.  ``remat`` recomputes each bottleneck in
+the backward pass (``torch.utils.checkpoint``).
 
 The public interface keeps the JAX package's NHWC layout: :class:`ResNetFPN`
 takes (B, H, W, 3) and returns [P2..P6] as (B, H_l, W_l, 256).  Inside, the
@@ -14,37 +21,120 @@ compiler.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import contextlib
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from treedetection_tpu_torch.models.layers import Conv2d
 
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
+BN_MOMENTUM = 0.9     # Flax's convention: running = m * running + (1-m) * batch
+BN_EPS = 1e-5
 
 
 class FrozenBN(nn.Module):
-    """Inference-mode batch norm folded to ``y = x * scale + bias``; the two
-    vectors are buffers, not parameters."""
+    """Inference-mode batch norm folded to ``y = x * scale + bias``, in the
+    input's dtype."""
 
     def __init__(self, features: int):
         super().__init__()
-        self.register_buffer("scale", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.scale[:, None, None] + self.bias[:, None, None]
+        dt = x.dtype
+        return (x * self.scale.to(dt)[:, None, None]
+                + self.bias.to(dt)[:, None, None])
+
+
+# the collector of the forward that runs under collect_batch_stats(), if any
+_STATS: List[Dict["BatchNorm", Tuple[torch.Tensor, torch.Tensor]]] = []
+
+
+@contextlib.contextmanager
+def collect_batch_stats() -> Iterator[Dict["BatchNorm", Tuple[torch.Tensor,
+                                                               torch.Tensor]]]:
+    """Collect each :class:`BatchNorm`'s batch (mean, biased variance) of
+    the forward run inside the block, the first call per module only.  The
+    backward's recomputation under ``remat`` runs outside the block and adds
+    nothing, so the running statistics move once per step, as Flax's
+    functional remat moves them."""
+    stats: Dict[BatchNorm, Tuple[torch.Tensor, torch.Tensor]] = {}
+    _STATS.append(stats)
+    try:
+        yield stats
+    finally:
+        _STATS.pop()
+
+
+class BatchNorm(nn.Module):
+    """Batch norm on the batch's statistics, always, in float32 at least
+    (the output too, as Flax's ``nn.BatchNorm(dtype=float32)``).  The running averages
+    follow Flax: momentum 0.9 and the BIASED batch variance; they move only
+    through :func:`updated_batch_stats`."""
+
+    def __init__(self, features: int, zero_gamma: bool = False):
+        super().__init__()
+        self.scale = nn.Parameter(torch.zeros(features) if zero_gamma
+                                  else torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # momentum 1 leaves exactly the batch's mean and unbiased variance
+        # in the two buffers: no second pass over x.  The call is the same
+        # whether or not it records, so remat's recomputation saves the
+        # same tensors as the first forward.
+        dt = torch.promote_types(x.dtype, torch.float32)
+        x = x.to(dt)
+        c = x.shape[1]
+        mean = torch.zeros(c, dtype=dt, device=x.device)
+        var = torch.zeros(c, dtype=dt, device=x.device)
+        y = F.batch_norm(x, mean, var, self.scale.to(dt), self.bias.to(dt),
+                         training=True, momentum=1.0, eps=BN_EPS)
+        stats = _STATS[-1] if _STATS else None
+        if stats is not None and self not in stats:
+            n = x.numel() // c
+            stats[self] = (mean, var * ((n - 1) / n))
+        return y
+
+
+def updated_batch_stats(model: nn.Module, stats) -> Dict[str, torch.Tensor]:
+    """The running statistics after one step, as state-dict entries
+    (``<module>.mean`` / ``<module>.var``), from what
+    :func:`collect_batch_stats` gathered."""
+    out = {}
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if m in stats:
+                mean, var = stats[m]
+                out[f"{name}.mean"] = (BN_MOMENTUM * m.mean
+                                       + (1.0 - BN_MOMENTUM) * mean)
+                out[f"{name}.var"] = (BN_MOMENTUM * m.var
+                                      + (1.0 - BN_MOMENTUM) * var)
+    return out
 
 
 class ConvBN(nn.Module):
-    """Conv (no bias, same padding) + FrozenBN (+ ReLU)."""
+    """Conv (no bias, same padding) + norm (+ ReLU)."""
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
-                 stride: int = 1, relu: bool = True):
+                 stride: int = 1, relu: bool = True, norm: str = "frozen",
+                 zero_gamma: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(in_features, features, kernel, stride=stride,
-                              padding=(kernel - 1) // 2, bias=False)
-        self.norm = FrozenBN(features)
+        self.conv = Conv2d(in_features, features, kernel, stride=stride,
+                           padding=(kernel - 1) // 2, bias=False)
+        if norm == "batch":
+            self.norm = BatchNorm(features, zero_gamma=zero_gamma)
+        elif norm == "frozen":
+            self.norm = FrozenBN(features)
+        else:
+            raise ValueError(f"unknown norm {norm!r}")
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -53,45 +143,55 @@ class ConvBN(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """Caffe-style bottleneck: the stride lives on the first 1x1 conv."""
+    """Caffe-style bottleneck: the stride lives on the first 1x1 conv; with
+    batch norm ``conv3``'s scale starts at 0 (each block starts as the
+    identity)."""
 
     def __init__(self, in_features: int, width: int, out_features: int,
-                 stride: int = 1):
+                 stride: int = 1, norm: str = "frozen"):
         super().__init__()
         self.shortcut = None
         if in_features != out_features or stride != 1:
             self.shortcut = ConvBN(in_features, out_features, kernel=1,
-                                   stride=stride, relu=False)
-        self.conv1 = ConvBN(in_features, width, kernel=1, stride=stride)
-        self.conv2 = ConvBN(width, width, kernel=3)
-        self.conv3 = ConvBN(width, out_features, kernel=1, relu=False)
+                                   stride=stride, relu=False, norm=norm)
+        self.conv1 = ConvBN(in_features, width, kernel=1, stride=stride,
+                            norm=norm)
+        self.conv2 = ConvBN(width, width, kernel=3, norm=norm)
+        self.conv3 = ConvBN(width, out_features, kernel=1, relu=False,
+                            norm=norm, zero_gamma=norm == "batch")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = x if self.shortcut is None else self.shortcut(x)
         y = self.conv3(self.conv2(self.conv1(x)))
-        return F.relu(y + shortcut)
+        return F.relu(y + shortcut.to(y.dtype))
 
 
 class ResNet(nn.Module):
     """Stem + res2..res5; ``forward`` -> [C2, C3, C4, C5] (strides 4..32)."""
 
-    def __init__(self, depth: int = 101):
+    def __init__(self, depth: int = 101, norm: str = "frozen",
+                 remat: bool = False):
         super().__init__()
-        self.stem = ConvBN(3, 64, kernel=7, stride=2)
+        self.remat = remat
+        self.stem = ConvBN(3, 64, kernel=7, stride=2, norm=norm)
         in_f, width, out_f = 64, 64, 256
         for stage, n_blocks in enumerate(STAGE_BLOCKS[depth]):
             blocks = [Bottleneck(in_f, width, out_f,
-                                 stride=1 if stage == 0 else 2)]
-            blocks += [Bottleneck(out_f, width, out_f)
+                                 stride=1 if stage == 0 else 2, norm=norm)]
+            blocks += [Bottleneck(out_f, width, out_f, norm=norm)
                        for _ in range(n_blocks - 1)]
             self.add_module(f"res{stage + 2}", nn.Sequential(*blocks))
             in_f, width, out_f = out_f, width * 2, out_f * 2
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = F.max_pool2d(self.stem(x), kernel_size=3, stride=2, padding=1)
+        remat = self.remat and torch.is_grad_enabled()
         outs = []
         for s in range(2, 6):
-            x = getattr(self, f"res{s}")(x)
+            for block in getattr(self, f"res{s}"):
+                x = (checkpoint(block, x, use_reentrant=False,
+                                preserve_rng_state=False) if remat
+                     else block(x))
             outs.append(x)
         return outs
 
@@ -104,9 +204,9 @@ class FPN(nn.Module):
                  features: int = 256):
         super().__init__()
         for i, c in enumerate(in_features):
-            self.add_module(f"lateral{i + 2}", nn.Conv2d(c, features, 1))
+            self.add_module(f"lateral{i + 2}", Conv2d(c, features, 1))
             self.add_module(f"output{i + 2}",
-                            nn.Conv2d(features, features, 3, padding=1))
+                            Conv2d(features, features, 3, padding=1))
 
     def forward(self, inputs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         laterals = [getattr(self, f"lateral{i + 2}")(c)
@@ -124,9 +224,10 @@ class FPN(nn.Module):
 class ResNetFPN(nn.Module):
     """(B, H, W, 3) NHWC -> [P2, P3, P4, P5, P6], each (B, H_l, W_l, 256)."""
 
-    def __init__(self, depth: int = 101, fpn_features: int = 256):
+    def __init__(self, depth: int = 101, fpn_features: int = 256,
+                 norm: str = "frozen", remat: bool = False):
         super().__init__()
-        self.bottom_up = ResNet(depth)
+        self.bottom_up = ResNet(depth, norm=norm, remat=remat)
         self.fpn = FPN(features=fpn_features)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:

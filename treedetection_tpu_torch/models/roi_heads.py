@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from treedetection_tpu_torch.models.layers import (
+    Conv2d, ConvTranspose2d, Linear)
 from treedetection_tpu_torch.ops.boxes import apply_deltas, clip_boxes
 from treedetection_tpu_torch.ops.nms import nms_mask, stable_topk
 
@@ -29,10 +31,10 @@ class BoxHead(nn.Module):
     def __init__(self, in_features: int = 256 * 7 * 7, num_classes: int = 1,
                  fc_dim: int = 1024):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, fc_dim)
-        self.fc2 = nn.Linear(fc_dim, fc_dim)
-        self.cls_score = nn.Linear(fc_dim, num_classes + 1)
-        self.bbox_pred = nn.Linear(fc_dim, num_classes * 4)
+        self.fc1 = Linear(in_features, fc_dim)
+        self.fc2 = Linear(fc_dim, fc_dim)
+        self.cls_score = Linear(fc_dim, num_classes + 1)
+        self.bbox_pred = Linear(fc_dim, num_classes * 4)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = F.relu(self.fc1(x.reshape(x.shape[0], -1)))
@@ -48,9 +50,9 @@ class MaskHead(nn.Module):
         super().__init__()
         for i in range(4):
             self.add_module(f"mask_fcn{i + 1}",
-                            nn.Conv2d(features, features, 3, padding=1))
-        self.deconv = nn.ConvTranspose2d(features, features, 2, stride=2)
-        self.predictor = nn.Conv2d(features, num_classes, 1)
+                            Conv2d(features, features, 3, padding=1))
+        self.deconv = ConvTranspose2d(features, features, 2, stride=2)
+        self.predictor = Conv2d(features, num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)

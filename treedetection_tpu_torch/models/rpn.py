@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from treedetection_tpu_torch.models.layers import Conv2d
 from treedetection_tpu_torch.ops.boxes import apply_deltas, clip_boxes
 from treedetection_tpu_torch.ops.nms import nms_mask, stable_topk
 
@@ -26,9 +27,9 @@ class RPNHead(nn.Module):
 
     def __init__(self, num_anchors: int = 3, features: int = 256):
         super().__init__()
-        self.conv = nn.Conv2d(features, features, 3, padding=1)
-        self.objectness_logits = nn.Conv2d(features, num_anchors, 1)
-        self.anchor_deltas = nn.Conv2d(features, num_anchors * 4, 1)
+        self.conv = Conv2d(features, features, 3, padding=1)
+        self.objectness_logits = Conv2d(features, num_anchors, 1)
+        self.anchor_deltas = Conv2d(features, num_anchors * 4, 1)
 
     def forward(self, feats: Sequence[torch.Tensor]
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:

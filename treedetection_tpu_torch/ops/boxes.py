@@ -71,6 +71,28 @@ def apply_deltas(deltas: torch.Tensor, boxes: torch.Tensor,
     ], dim=-1)
 
 
+def encode_deltas(src: torch.Tensor, target: torch.Tensor,
+                  weights: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
+                  ) -> torch.Tensor:
+    """Inverse of :func:`apply_deltas` (the training targets)."""
+    wx, wy, ww, wh = weights
+    sw = src[..., 2] - src[..., 0]
+    sh = src[..., 3] - src[..., 1]
+    sx = src[..., 0] + 0.5 * sw
+    sy = src[..., 1] + 0.5 * sh
+    tw = target[..., 2] - target[..., 0]
+    th = target[..., 3] - target[..., 1]
+    tx = target[..., 0] + 0.5 * tw
+    ty = target[..., 1] + 0.5 * th
+    eps = 1e-7
+    return torch.stack([
+        wx * (tx - sx) / torch.clamp(sw, min=eps),
+        wy * (ty - sy) / torch.clamp(sh, min=eps),
+        ww * torch.log(torch.clamp(tw, min=eps) / torch.clamp(sw, min=eps)),
+        wh * torch.log(torch.clamp(th, min=eps) / torch.clamp(sh, min=eps)),
+    ], dim=-1)
+
+
 def clip_boxes(boxes: torch.Tensor, height: float, width: float) -> torch.Tensor:
     return torch.stack([
         torch.clamp(boxes[..., 0], 0, width),

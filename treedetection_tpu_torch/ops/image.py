@@ -60,6 +60,11 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return y if batched else y[0]
 
 
+# BGR std of from-scratch training (torchvision's convention); converted
+# detectron2-caffe checkpoints use std (1, 1, 1)
+TRAIN_PIXEL_STD_BGR = (57.375, 57.12, 58.395)
+
+
 def normalize_bgr(rgb: torch.Tensor,
                   pixel_mean: Tuple[float, ...] = (103.53, 116.28, 123.675),
                   pixel_std: Tuple[float, ...] = (1.0, 1.0, 1.0)

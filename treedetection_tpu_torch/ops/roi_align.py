@@ -24,6 +24,10 @@ have no counterpart here; ``TD_PALLAS_ROIALIGN`` and ``TD_PALLAS_INTERPRET``
 neither (a wrapper takes its plain version for CPU tensors and its kernel
 for CUDA tensors).
 
+Training pools through ``multilevel_roi_align(differentiable=True)``, the
+JAX function's ``pallas=False`` branch in PyTorch operations that autograd
+differentiates, and crops GT masks with the single-level ``roi_align``.
+
 Semantics: aligned=True coordinates (half-pixel shift), a fixed 2x2 sampling
 grid per bin, detectron2 FPN level assignment, zero contribution from samples
 outside (-1, H).
@@ -160,6 +164,39 @@ def _sample_grid(boxes: torch.Tensor, spatial_scale: torch.Tensor,
     ys = ys[:, :, None, :, None].expand(shape)
     xs = xs[:, None, :, None, :].expand(shape)
     return ys, xs
+
+
+def roi_align(fmap: torch.Tensor, boxes: torch.Tensor, resolution: int,
+              spatial_scale: float, sampling_ratio: int = 2) -> torch.Tensor:
+    """ROIAlign on one map -> (N, R, R, C): ``fmap`` (H, W, C) for every
+    box, or (N, H, W, C) with map n for box n (the JAX function under
+    ``vmap``).  Samples outside (-1, H) contribute 0; inside, the
+    coordinates clamp to the edge pixels."""
+    n = boxes.shape[0]
+    per_box = fmap.dim() == 4
+    h, w = fmap.shape[-3], fmap.shape[-2]
+    scale = torch.full((n,), spatial_scale, dtype=boxes.dtype,
+                       device=boxes.device)
+    ys, xs = _sample_grid(boxes, scale, resolution, sampling_ratio)
+    valid = (ys > -1.0) & (ys < h) & (xs > -1.0) & (xs < w)
+    y = torch.clamp(ys, 0.0, h - 1.0)
+    x = torch.clamp(xs, 0.0, w - 1.0)
+    y0 = torch.floor(y).to(torch.int64)
+    x0 = torch.floor(x).to(torch.int64)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    ly = (y - y0.to(y.dtype))[..., None]
+    lx = (x - x0.to(x.dtype))[..., None]
+    box = torch.arange(n, device=boxes.device)[:, None, None, None, None]
+
+    def at(yy, xx):
+        return fmap[box, yy, xx] if per_box else fmap[yy, xx]
+
+    out = (at(y0, x0) * (1 - ly) * (1 - lx) + at(y0, x1) * (1 - ly) * lx
+           + at(y1, x0) * ly * (1 - lx) + at(y1, x1) * ly * lx)
+    out = torch.where(valid[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                         device=out.device))
+    return out.mean(dim=(3, 4))
 
 
 def _patch_pool_prep(flat_boxes: torch.Tensor, hs: np.ndarray, ws: np.ndarray,
@@ -654,10 +691,48 @@ def multilevel_roi_align_batched(fmaps: Sequence[torch.Tensor],
             inexact.reshape(b, n))
 
 
+def _window_pool_differentiable(fmaps: Sequence[torch.Tensor],
+                                boxes: torch.Tensor, resolution: int,
+                                strides: Sequence[int], sampling_ratio: int,
+                                chunk: int = 128
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training pooler of one image, which autograd differentiates:
+    each box slices one (PATCH, PATCH, C) window of the level-concatenated,
+    zero-padded buffer and contracts it with its two hat matrices, ``chunk``
+    boxes at a time.  Autograd keeps the window indices and the hats, not
+    the windows.  -> ((N, R, R, C), (N,) bool overflow)."""
+    c = fmaps[0].shape[-1]
+    dev = boxes.device
+    n = boxes.shape[0]
+    hs = np.asarray([f.shape[0] for f in fmaps])
+    ws = np.asarray([f.shape[1] for f in fmaps])
+    flat = torch.cat([torch.nn.functional.pad(f, (0, 0, 0, PATCH, 0, PATCH))
+                      .reshape(-1, c) for f in fmaps])
+    wps = ws + PATCH
+    bases = np.concatenate([[0], np.cumsum((hs + PATCH) * wps)[:-1]])
+    levels, oy, ox, sy, sx, valid_y, valid_x = _patch_pool_prep(
+        boxes, hs, ws, strides, resolution, sampling_ratio, len(fmaps))
+    overflow = (sy.amax(dim=1) > PATCH - 1) | (sx.amax(dim=1) > PATCH - 1)
+    ay, ax = _fold_hats(sy, sx, valid_y, valid_x, resolution, sampling_ratio,
+                        PATCH)
+    ay, ax = ay.to(flat.dtype), ax.to(flat.dtype)
+    span = torch.arange(PATCH, device=dev)
+    starts = (torch.as_tensor(bases, device=dev)[levels][:, None]
+              + (oy[:, None] + span) * torch.as_tensor(wps, device=dev)[
+                  levels][:, None] + ox[:, None])                 # (N, PATCH)
+    outs = [flat.new_zeros((0, resolution, resolution, c))]
+    for k in range(0, n, chunk):
+        windows = flat[starts[k:k + chunk, :, None] + span]  # (K, y, x, C)
+        t = torch.einsum("kiy,kyxc->kixc", ay[k:k + chunk], windows)
+        outs.append(torch.einsum("kjx,kixc->kijc", ax[k:k + chunk], t))
+    return torch.cat(outs), overflow
+
+
 def multilevel_roi_align(fmaps: Sequence[torch.Tensor], boxes: torch.Tensor,
                          resolution: int, strides: Sequence[int],
                          sampling_ratio: int = 2,
-                         return_overflow: bool = False):
+                         return_overflow: bool = False,
+                         differentiable: bool = False):
     """Single-image multilevel ROIAlign: ``fmaps[l]`` (H_l, W_l, C),
     ``boxes`` (N, 4) -> (N, R, R, C) in the feature dtype, and with
     ``return_overflow`` the count of boxes left truncated.
@@ -667,9 +742,11 @@ def multilevel_roi_align(fmaps: Sequence[torch.Tensor], boxes: torch.Tensor,
     ``FALLBACK_BUDGET`` boxes whose samples outspan the window are re-pooled
     through the gather path, lowest index first.  Geometries whose boxes
     could outspan the patch on every level pool through the gather path
-    alone.  (Training calls the JAX function with ``pallas=False`` for a
-    differentiable path; this one is the inference path and defines no
-    gradient.)
+    alone.  K5 defines no gradient: training passes ``differentiable=True``
+    (the JAX caller's ``pallas=False``), which pools each box from a 48x48
+    window with two einsums and takes the same gather fix-up, all in
+    PyTorch operations that autograd differentiates.  The boxes get no
+    gradient.
     """
     dtype = fmaps[0].dtype
     dev = boxes.device
@@ -681,22 +758,29 @@ def multilevel_roi_align(fmaps: Sequence[torch.Tensor], boxes: torch.Tensor,
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         return (out, zero) if return_overflow else out
 
-    p = level_pool_inputs([f[None] for f in fmaps], boxes[None], resolution,
-                          strides, sampling_ratio)
-    g = p.geom
-    out = roi_pool_patches(p.kpadded, p.meta, g.ay, g.ax, resolution, PATCH)
-    inexact = g.overflow
+    if differentiable:
+        boxes = boxes.detach()
+        out, overflow = _window_pool_differentiable(
+            fmaps, boxes, resolution, strides, sampling_ratio)
+    else:
+        p = level_pool_inputs([f[None] for f in fmaps], boxes[None],
+                              resolution, strides, sampling_ratio)
+        g = p.geom
+        out = roi_pool_patches(p.kpadded, p.meta, g.ay, g.ax, resolution,
+                               PATCH)
+        overflow = g.overflow
+    inexact = overflow
     m = min(FALLBACK_BUDGET, n)
     if m > 0:
-        flag, idx = stable_topk(g.overflow.to(torch.float32), m)
+        flag, idx = stable_topk(overflow.to(torch.float32), m)
         fb = multilevel_roi_align_gather(fmaps, boxes[idx], resolution,
                                          strides, sampling_ratio)
         take = flag > 0
-        out[idx] = torch.where(take[:, None, None, None], fb.to(out.dtype),
-                               out[idx])
+        out = out.index_put((idx,), torch.where(
+            take[:, None, None, None], fb.to(out.dtype), out[idx]))
         sel = torch.zeros(n, dtype=torch.bool, device=dev)
         sel[idx] = take
-        inexact = g.overflow & ~sel
+        inexact = overflow & ~sel
     if return_overflow:
         return out, inexact.sum().to(torch.int32)
     return out
