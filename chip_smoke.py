@@ -6,7 +6,7 @@
 Phases (each prints JSON lines; any failure exits non-zero).  ``--phases``
 takes a comma-separated subset of
 build,kernel,predictor,model,pipeline,pipeline_multihost,pipeline_two_model,
-train:
+train,eval,autolabel:
 
 1. build     — compile the port's native libraries from the sources in the
                checkout (one nvcc per CUDA kernel source, g++ for the host
@@ -86,7 +86,23 @@ train:
                the card held against the same step on the CPU; the
                from-scratch weights folded, saved and served by the
                Predictor over phase 3's raster (K1 twice per batch).
-8. kernels   — the per-kernel summary line, then the card's name and power
+8. eval      — the crowns that phases 3 and 7 served (the shipped and the
+               30-step checkpoint, K1 twice per batch) stitched into GPKGs
+               and scored against the phase-3 raster's own disc polygons
+               with evaluate_gpkg_pair, confidence_sweep and evaluate_grid
+               (P, R, F1, mean IoU, best confidence, seconds per call; no
+               quality claim); the eval subcommand must print the call's
+               metrics.
+9. autolabel — a synthetic 1 km^2 nDSM at 1 m (Gaussian crowns, roof
+               plateaus): Voronoi and region-grow labels on the card with
+               TF32 at torch's defaults and on the CPU (equal seeds, smooth
+               heights within 1e-6 of the peak, equal crown layers); the
+               seed search timed on a 25 km^2 block, card against CPU; the
+               Cambridge flow on the phase-3 raster and its discs; the NDVI
+               debug raster against float64 numpy; mask pasting and
+               class-aware NMS card against CPU; the voronoi and autolabel
+               subcommands against the calls.
+10. kernels  — the per-kernel summary line, then the card's name and power
                limit, then the final status line.
 
 Imports nothing of JAX.  Exits non-zero without a result when CUDA is not
@@ -115,7 +131,8 @@ H100_BYTES_PER_S = 3.35e12          # HBM3, SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,     # CUDA cores, no tensor cores
               "bfloat16": 989e12}   # dense tensor cores
 PHASES = ("build", "kernel", "predictor", "model", "pipeline",
-          "pipeline_multihost", "pipeline_two_model", "train")
+          "pipeline_multihost", "pipeline_two_model", "train", "eval",
+          "autolabel")
 ROI_LIBRARIES = ("roi_pool_flat", "roi_pool_levels", "roi_pool_resident")
 K6_CHUNKS = (1, 2, 4, 8, 16, 32)   # boxes per block timed in the kernel phase
 PAIRWISE_BLOCK_ROWS, PAIRWISE_COLS = 8192, 32768   # one production row block
@@ -1042,7 +1059,7 @@ def phase_predictor(state, workdir: Path):
     _clear_layout_env()
     tif = workdir / "rgb" / "324125317.tif"
     tif.parent.mkdir(parents=True)
-    write_synthetic_raster(tif)
+    state["discs"] = write_synthetic_raster(tif)
     meta = tile_single_file(str(tif), str(workdir / "tiles"), buffer=20,
                             tile_width=50, tile_height=50)
     n_tiles = len(json.loads(Path(meta).read_text()))
@@ -2002,11 +2019,7 @@ def write_training_labels(tif: Path, gpkg: Path, seed: int = 1) -> int:
     (32-gons in map coordinates) -> the number of crowns."""
     from treedetection_tpu_torch.vector import write_gpkg
     tif.parent.mkdir(parents=True, exist_ok=True)
-    discs = write_synthetic_raster(tif, seed=seed)
-    t = np.linspace(0.0, 2 * np.pi, 32, endpoint=False)
-    rings = [np.stack([412000.0 + (cx + rad * np.cos(t)) * 0.2,
-                       5318000.0 - (cy + rad * np.sin(t)) * 0.2], axis=1)
-             for cy, cx, rad in discs]
+    rings = disc_rings(write_synthetic_raster(tif, seed=seed))
     write_gpkg(str(gpkg), rings, [{"Confidence_score": 1.0}] * len(rings))
     return len(rings)
 
@@ -2200,9 +2213,335 @@ def phase_train(state, workdir: Path):
         fail(f"train: launches {counts} for {batches} batches (expected K1 "
              f"twice per batch and no other)")
     state["train"] = row
+    state["pred_trained_dir"] = out
 
 
-# --- phase 8: summary ----------------------------------------------------------
+# --- phase 8: eval of the served crowns ---------------------------------------
+
+EVAL_IOU = 0.5
+EVAL_CONFIDENCE = 0.3
+EVAL_SWEEP = (0.3, 0.5, 0.7, 0.9)        # confidences of confidence_sweep
+EVAL_GRID = ((0.3, 0.5), (0.5, 0.7))     # IoU x confidence of evaluate_grid
+
+
+def disc_rings(discs):
+    """The synthetic raster's crown discs (row, col, radius px) as 32-gons
+    in map coordinates."""
+    t = np.linspace(0.0, 2 * np.pi, 32, endpoint=False)
+    return [np.stack([412000.0 + (cx + rad * np.cos(t)) * 0.2,
+                      5318000.0 - (cy + rad * np.sin(t)) * 0.2], axis=1)
+            for cy, cx, rad in discs]
+
+
+def _timed_call(fn, *args, **kw):
+    t0 = time.time()
+    out = fn(*args, **kw)
+    return out, time.time() - t0
+
+
+def _all_finite(rows) -> bool:
+    return all(math.isfinite(v) for r in rows for v in r.values()
+               if isinstance(v, (int, float)))
+
+
+def _port_cli(*argv, timeout=600):
+    """``python -m treedetection_tpu_torch.cli ARGV`` from the checkout ->
+    its standard output; fails on a non-zero exit."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-m", "treedetection_tpu_torch.cli", *argv],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        fail(f"treedetection-torch {argv[0]} exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def phase_eval(state, workdir: Path):
+    """Score the crowns the card served: the predictor phase's pass of the
+    shipped checkpoint and the train phase's pass of the 30-step one, each
+    stitched into a GPKG, against the predictor raster's own disc polygons
+    (seed 0; the trainer saw seed 1's raster).  No quality claim."""
+    from treedetection_tpu_torch.eval import confidence_sweep, evaluate_grid
+    from treedetection_tpu_torch.eval.validation import evaluate_gpkg_pair
+    from treedetection_tpu_torch.stitching import stitch_image
+    from treedetection_tpu_torch.vector import read_gpkg, write_gpkg
+    t_phase = time.time()
+    edir = workdir / "eval"
+    edir.mkdir()
+    gts = disc_rings(state["discs"])
+    gt = edir / "discs.gpkg"
+    write_gpkg(str(gt), gts, [{"Confidence_score": 1.0}] * len(gts))
+    # checkpoint -> (served tile files, the phase whose K1 launches served
+    # them); this phase itself launches no kernel
+    served = {"shipped": (state["pred_timed_dir"], "predictor"),
+              "trained_30_steps": (state["pred_trained_dir"], "train")}
+    rows, pairs = {}, {}
+    for name, (pred_dir, phase) in served.items():
+        gpkg = edir / f"{name}.gpkg"
+        crowns, stitch_s = _timed_call(stitch_image, str(pred_dir), str(gpkg))
+        pair, pair_s = _timed_call(evaluate_gpkg_pair, str(gpkg), str(gt),
+                                   EVAL_IOU, EVAL_CONFIDENCE)
+        geoms, props, _ = read_gpkg(str(gpkg))
+        preds = [np.asarray(g[0][0]) for g in geoms if g and g[0]]
+        scores = [float(p.get("Confidence_score", 0.0))
+                  for g, p in zip(geoms, props) if g and g[0]]
+        (best, sweep), sweep_s = _timed_call(
+            confidence_sweep, preds, scores, gts, EVAL_IOU, EVAL_SWEEP)
+        grid, grid_s = _timed_call(evaluate_grid, preds, scores, gts,
+                                   *EVAL_GRID)
+        rows[name] = {
+            "crowns": crowns, "served_in_phase": phase,
+            "precision": pair["precision"], "recall": pair["recall"],
+            "f1": pair["f1"], "mean_iou": pair["mean_iou"],
+            "tp_fp_fn": [pair["tp"], pair["fp"], pair["fn"]],
+            "best_confidence": best,
+            "best_f1": max(r["f1"] for r in sweep),
+            "sweep_f1": {str(r["confidence_threshold"]): r["f1"]
+                         for r in sweep},
+            "grid_f1": {f"{r['iou_threshold']}/{r['confidence_threshold']}":
+                        r["f1"] for r in grid},
+            "seconds": {"stitch_image": stitch_s,
+                        "evaluate_gpkg_pair": pair_s,
+                        "confidence_sweep": sweep_s,
+                        "evaluate_grid": grid_s}}
+        pairs[name] = pair
+        if not _all_finite([pair, *sweep, *grid]):
+            fail(f"eval: a non-finite metric for {name}: {pair}")
+        if crowns == 0:
+            fail(f"eval: the {name} pass stitched no crowns")
+    t0 = time.time()
+    cli = json.loads(_port_cli("eval", str(edir / "shipped.gpkg"), str(gt),
+                               "--iou", str(EVAL_IOU),
+                               "--confidence", str(EVAL_CONFIDENCE)))
+    cli_s = time.time() - t0
+    cli_equal = cli == pairs["shipped"]
+    row = {"phase": "eval", "ground_truth_discs": len(gts),
+           "iou": EVAL_IOU, "confidence": EVAL_CONFIDENCE,
+           "sweep": list(EVAL_SWEEP), "grid": [list(g) for g in EVAL_GRID],
+           **rows, "cli_equals_call": cli_equal, "cli_s": cli_s,
+           "seconds": time.time() - t_phase}
+    emit(row)
+    if not cli_equal:
+        fail(f"eval: the CLI printed {cli}, the call returned "
+             f"{pairs['shipped']}")
+    state["eval"] = row
+
+
+# --- phase 9: autolabels from an nDSM on the card ------------------------------
+
+NDSM_PX = 1000            # 1 km^2 at 1 m, the reference sample's size
+CARD = "cuda"
+CARD_FLAGS = ()           # the voronoi and autolabel subcommands' --device
+SEEDS_TIMING_TILES = 5    # find_crown_seeds timed on 5x5 such blocks
+SEEDS_TIMING_RUNS = 5
+
+
+def synthetic_ndsm(side: int, seed: int = 2):
+    """(side, side) float32 heights at 1 m: flat ground, seeded Gaussian
+    crowns of 2-12 m radius and 5-30 m height (about 25 per hectare), and
+    a few flat roof plateaus 4-12 m high."""
+    rng = np.random.default_rng(seed)
+    h = np.zeros((side, side), np.float32)
+    for _ in range(side * side // 400):
+        cy, cx = rng.uniform(0, side, 2)
+        rad, peak = rng.uniform(2, 12), rng.uniform(5, 30)
+        r = int(rad * 1.5) + 1
+        y0, y1 = max(int(cy) - r, 0), min(int(cy) + r + 1, side)
+        x0, x1 = max(int(cx) - r, 0), min(int(cx) + r + 1, side)
+        yy, xx = np.mgrid[y0:y1, x0:x1]
+        bump = peak * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2)
+                             / (2 * (rad / 2) ** 2))
+        h[y0:y1, x0:x1] = np.maximum(h[y0:y1, x0:x1], bump)
+    for _ in range(max(side // 150, 1)):
+        y0, x0 = rng.integers(0, side - 40, 2)
+        dy, dx = rng.integers(10, 40, 2)
+        h[y0:y0 + dy, x0:x0 + dx] = rng.uniform(4, 12)
+    return h
+
+
+def _layer(path):
+    from treedetection_tpu_torch.vector import read_gpkg
+    geoms, props, _ = read_gpkg(str(path))
+    return [np.asarray(g[0][0]) for g in geoms], props
+
+
+def _same_layer(a, b) -> bool:
+    (ga, pa), (gb, pb) = _layer(a), _layer(b)
+    return len(ga) == len(gb) and pa == pb and all(
+        np.array_equal(x, y) for x, y in zip(ga, gb))
+
+
+def _seeds_ms(find_crown_seeds, height):
+    import torch
+    for _ in range(2):                                     # warm-up
+        find_crown_seeds(height)
+    times = []
+    for _ in range(SEEDS_TIMING_RUNS):
+        if height.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.time()
+        find_crown_seeds(height)
+        if height.is_cuda:
+            torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_autolabel(state, workdir: Path):
+    """Voronoi and region-grow labels from a synthetic 1 km^2 nDSM on the
+    card with TF32 at torch's defaults, held against the CPU; the seed
+    search timed on a 25 km^2 block; the Cambridge flow, the NDVI debug
+    raster, mask pasting and class-aware NMS card against CPU; the voronoi
+    and autolabel subcommands."""
+    import shutil
+    import torch
+    from treedetection_tpu_torch.autolabel import (
+        autolabel_and_evaluate, generate_region_grow_labels,
+        generate_voronoi_labels)
+    from treedetection_tpu_torch.autolabel.voronoi import find_crown_seeds
+    from treedetection_tpu_torch.geo import Affine, GeoTiff, write_geotiff
+    from treedetection_tpu_torch.ops.masks import paste_masks_in_image
+    from treedetection_tpu_torch.ops.nms import batched_nms
+    from treedetection_tpu_torch.utils.ndvi_debug import write_ndvi_debug
+    from treedetection_tpu_torch.vector import write_gpkg
+    t_phase = time.time()
+    adir = workdir / "autolabel"
+    adir.mkdir()
+    height = synthetic_ndsm(NDSM_PX)
+    ndsm = adir / "ndsm.tif"
+    write_geotiff(str(ndsm), height, Affine.from_origin(412000.0, 5318000.0,
+                                                        1.0, 1.0), crs=25832)
+
+    # 1. labels on the card with TF32 at torch's defaults, then on the CPU
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = state["tf32_default"]
+    try:
+        labels, seeds = {}, {}
+        for dev in (CARD, "cpu"):
+            t = torch.from_numpy(height).to(dev)
+            smooth, mask = find_crown_seeds(t)
+            seeds[dev] = (smooth.cpu().numpy(), mask.cpu().numpy())
+            for gen, fn in (("voronoi", generate_voronoi_labels),
+                            ("region_grow", generate_region_grow_labels)):
+                out = adir / f"{gen}_{dev}.gpkg"
+                n, s = _timed_call(fn, str(ndsm), str(out), device=dev)
+                labels[(gen, dev)] = {"crowns": n, "s": s, "path": out}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    (s_gpu, m_gpu), (s_cpu, m_cpu) = seeds[CARD], seeds["cpu"]
+    smooth_err = float(np.abs(s_gpu - s_cpu).max())
+    same_layers = {gen: _same_layer(labels[(gen, CARD)]["path"],
+                                    labels[(gen, "cpu")]["path"])
+                   for gen in ("voronoi", "region_grow")}
+
+    # 2. the seed search alone on a 25 km^2 block, card against CPU
+    big = np.tile(height, (SEEDS_TIMING_TILES, SEEDS_TIMING_TILES))
+    seeds_ms = {dev: _seeds_ms(find_crown_seeds,
+                               torch.from_numpy(big).to(dev))
+                for dev in (CARD, "cpu")}
+
+    # 3. the Cambridge flow on the predictor raster and its discs, in-process
+    # and through the autolabel subcommand
+    for sub in ("img", "ann"):
+        (adir / sub).mkdir()
+    img = adir / "img" / state["tif"].name
+    shutil.copy(state["tif"], img)
+    rings = disc_rings(state["discs"])
+    ann = adir / "ann" / f"{img.stem}.gpkg"
+    write_gpkg(str(ann), rings, [{} for _ in rings], srs_id=25832)
+    cam, cam_s = _timed_call(autolabel_and_evaluate, str(img), str(ann),
+                             out_gpkg=str(adir / "cambridge.gpkg"))
+    cli_rows = json.loads(_port_cli("autolabel", str(adir / "img"),
+                                    str(adir / "ann"), str(adir / "cli"),
+                                    *CARD_FLAGS))
+    cli_voronoi = _port_cli("voronoi", str(ndsm), str(adir / "cli.gpkg"),
+                            *CARD_FLAGS)
+
+    # 4. the NDVI debug raster on the card against float64 numpy
+    tif, png = write_ndvi_debug(str(state["tif"]), str(adir / "ndvi"),
+                                plot=False, device=CARD)
+    with GeoTiff(str(state["tif"])) as g:
+        rgbi = g.read().astype(np.float64)
+    with GeoTiff(tif) as g:
+        ndvi = g.read()[..., 0]
+    r, nir = rgbi[..., 0] / 255.0, rgbi[..., 3] / 255.0
+    ndvi_err = float(np.abs(ndvi - (nir - r) / (nir + r + 1e-7)).max())
+
+    # 5. mask pasting (one batch's 100 detections at 1024^2) and class-aware
+    # NMS (1000 boxes, 3 classes), card against CPU
+    rng = np.random.default_rng(3)
+    masks = torch.from_numpy(rng.uniform(0, 1, (100, 28, 28)).astype(
+        np.float32))
+    xy = rng.uniform(-20, 1000, (100, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [xy, xy + rng.uniform(4, 200, (100, 2))], 1).astype(np.float32))
+    pasted = {dev: paste_masks_in_image(masks.to(dev), boxes.to(dev),
+                                        1024, 1024).cpu()
+              for dev in (CARD, "cpu")}
+    near = paste_masks_in_image(masks, boxes, 1024, 1024, 0.5 - 1e-6) != \
+        paste_masks_in_image(masks, boxes, 1024, 1024, 0.5 + 1e-6)
+    paste_diff = int((pasted[CARD] != pasted["cpu"])[~near].sum())
+    c = rng.uniform(0, 1024, (1000, 2))
+    nboxes = torch.from_numpy(np.concatenate(
+        [c, c + rng.uniform(8, 120, (1000, 2))], 1).astype(np.float32))
+    nscores = torch.from_numpy(rng.uniform(0, 1, 1000).astype(np.float32))
+    idxs = torch.from_numpy(rng.integers(0, 3, 1000))
+    keep = {dev: batched_nms(nboxes.to(dev), nscores.to(dev), idxs.to(dev),
+                             0.5).cpu() for dev in (CARD, "cpu")}
+
+    row = {"phase": "autolabel", "ndsm_px": NDSM_PX,
+           "tf32_during_card_runs": dict(zip(
+               ("matmul", "cudnn"), state["tf32_default"])),
+           "seeds": int(m_cpu.sum()),
+           "seed_masks_equal": bool(np.array_equal(m_gpu, m_cpu)),
+           "smooth_max_abs_err": smooth_err,
+           "smooth_rel_to_peak": smooth_err / float(np.abs(s_cpu).max()),
+           **{f"{gen}_{dev}": {"crowns": v["crowns"], "s": v["s"]}
+              for (gen, dev), v in labels.items()},
+           "layers_equal": same_layers,
+           "find_crown_seeds_ms_5000px": seeds_ms,
+           "cambridge": {k: cam[k] for k in (
+               "n_annotations", "n_crowns", "precision", "recall", "f1",
+               "mean_iou", "flags")}, "cambridge_s": cam_s,
+           "autolabel_cli_equals_call": cli_rows == [cam],
+           "voronoi_cli": cli_voronoi.strip(),
+           "ndvi_max_abs_err_vs_float64": ndvi_err,
+           "paste_masks": {"pixels": int(near.numel()),
+                           "near_threshold": int(near.sum()),
+                           "mismatches_elsewhere": paste_diff},
+           "batched_nms": {"kept": int(keep["cpu"].sum()),
+                           "keep_equal": bool(torch.equal(keep[CARD],
+                                                          keep["cpu"]))},
+           "seconds": time.time() - t_phase}
+    emit(row)
+    print(gpu_line(), flush=True)
+    n_vor = labels[("voronoi", CARD)]["crowns"]
+    if not row["seed_masks_equal"] or row["smooth_rel_to_peak"] > 1e-6:
+        fail(f"autolabel: the card's seeds differ from the CPU's "
+             f"(smooth {smooth_err})")
+    if not all(same_layers.values()) or any(
+            labels[(g, CARD)]["crowns"] != labels[(g, "cpu")]["crowns"]
+            or labels[(g, CARD)]["crowns"] == 0
+            for g in ("voronoi", "region_grow")):
+        fail(f"autolabel: the card's labels differ from the CPU's: {row}")
+    if cli_voronoi.strip() != f"{n_vor} crowns -> {adir / 'cli.gpkg'}" or \
+            not row["autolabel_cli_equals_call"]:
+        fail(f"autolabel: the subcommands disagree with the calls: "
+             f"{cli_voronoi!r}, {cli_rows} vs {cam}")
+    if cam["n_crowns"] != len(rings) or not math.isfinite(cam["f1"]):
+        fail(f"autolabel: the Cambridge flow gave {cam}")
+    if ndvi_err > 1e-6 or png is not None:
+        fail(f"autolabel: NDVI off float64 numpy by {ndvi_err}")
+    if paste_diff or not row["batched_nms"]["keep_equal"]:
+        fail(f"autolabel: pasting or NMS differ card against CPU: {row}")
+    state["autolabel"] = row
+
+
+# --- phase 10: summary ----------------------------------------------------------
 
 ROI_KERNELS = {   # key -> (number, wrapper, source, the TPU kernel's line)
     "k1": ("K1", "roi_pool_patches_flat", "roi_pool_flat.cu", 172),
@@ -2363,18 +2702,25 @@ def main() -> None:
     if "train" in phases and "predictor" not in phases:
         fail("the train phase serves on the predictor phase's raster: name "
              "both")
+    if "eval" in phases and not {"predictor", "train"} <= set(phases):
+        fail("the eval phase scores the predictor and train phases' served "
+             "crowns: name all three")
+    if "autolabel" in phases and "predictor" not in phases:
+        fail("the autolabel phase reruns the predictor phase's raster: name "
+             "both")
     if not (REPO / "treedetection_tpu_torch" / "__init__.py").is_file():
         fail("the treedetection_tpu_torch package is not beside this script")
     sys.path.insert(0, str(REPO))
     import torch
     if not torch.cuda.is_available():
         fail("CUDA is not available")
+    state = {"tf32_default": (torch.backends.cuda.matmul.allow_tf32,
+                              torch.backends.cudnn.allow_tf32)}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.multihost_child is not None:
         multihost_child(args.multihost_child)
         return
-    state = {}
     t_start = time.time()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = Path(tmp)
@@ -2399,6 +2745,10 @@ def main() -> None:
             phase_pipeline_two_model(state, work)
         if "train" in phases:
             phase_train(state, work)
+        if "eval" in phases:
+            phase_eval(state, work)
+        if "autolabel" in phases:
+            phase_autolabel(state, work)
     if set(phases) == set(PHASES):
         emit(kernels_line(state))
     emit({"phase": "done", "seconds": round(time.time() - t_start, 3)})

@@ -374,11 +374,12 @@ def test_get_predictor_builds_once_under_a_race(monkeypatch):
     assert prediction.get_predictor(config, "other.npz") is not built[0]
 
 
-def test_cli_runs_the_stages(runs, capsys, monkeypatch):
+def test_cli_runs_the_stages(runs, capsys, monkeypatch, tmp_path):
     """``cli.main`` drives each ported stage from a YAML config (here on the
     finished run, so every stage resumes from its manifest) and prints the
-    stage's outputs; the unported subcommands exit with code 2 and name the
-    roadmap item."""
+    stage's outputs; ``bench``, not ported, exits with code 2 and names its
+    roadmap item; the ported ``eval``, ``voronoi`` and ``autolabel`` fail
+    on inputs that do not exist as the JAX package's CLI does."""
     import logging
     from treedetection_tpu_torch import cli
     from treedetection_tpu_torch.config import LOGGER_NAME
@@ -402,9 +403,20 @@ def test_cli_runs_the_stages(runs, capsys, monkeypatch):
     assert printed["run"] == printed["postprocess"] == runs["ours"]
     assert [Path(p).name for p in printed["predict"]] == ["324125317.gpkg"]
     assert [Path(p).name for p in printed["preprocess"]] == ["324125317.json"]
-    for command in ("eval", "voronoi", "autolabel", "bench"):
-        assert cli.main([command, "x"]) == 2
-        assert "ROADMAP.md Queue 1 item" in capsys.readouterr().err
+    assert cli.main(["bench", "x"]) == 2
+    assert "ROADMAP.md Queue 1 item 12" in capsys.readouterr().err
+    assert set(cli.UNPORTED) == {"bench"}
+    from treedetection_tpu import cli as jax_cli
+    gone = str(tmp_path / "missing")
+    for argv in (["eval", gone + ".gpkg", gone + "_gt.gpkg"],
+                 ["voronoi", gone + ".tif", str(tmp_path / "out.gpkg")],
+                 ["autolabel", gone, gone + "_ann", str(tmp_path / "out")]):
+        raised = []
+        for main in (cli.main, jax_cli.main):
+            with pytest.raises(Exception) as info:
+                main(argv)
+            raised.append(type(info.value))
+        assert raised[0] is raised[1], (argv, raised)
 
 
 def test_unported_branches_raise(tmp_path, monkeypatch):

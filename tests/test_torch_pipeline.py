@@ -244,8 +244,8 @@ from treedetection_tpu_torch import cli, compat
 mask = np.zeros((8, 8), np.uint8)
 mask[2:6, 2:6] = 1
 ring = compat.polygon_from_mask(compat.rle_decode(compat.rle_encode(mask)))
-extra = [cli.main(["bench"]), cli.main(["eval", "a.gpkg", "b.gpkg"]),
-         len(ring) >= 8]
+extra = [cli.main(["bench"]), cli.main(["eval", outputs[0], outputs[0]]),
+         len(ring) >= 8, "treedetection_tpu_torch.eval.scores" in sys.modules]
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(json.dumps({{"counts": counts, "bad": bad, "extra": extra}}))
 """
@@ -256,8 +256,9 @@ print(json.dumps({{"counts": counts, "bad": bad, "extra": extra}}))
     assert proc.returncode == 0, proc.stderr[-3000:]
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
-    # the unported subcommands exit with 2; the RLE helpers need nothing else
-    assert result["extra"] == [2, 2, True]
+    # the unported bench exits with 2; eval scores the layer against itself
+    # (so the scan above covers eval/); the RLE helpers need nothing else
+    assert result["extra"] == [2, 0, True, True]
     assert result["counts"] == [
         [1, 25832, ["324125317.json", "recovery.yaml"], True]] * 2
 

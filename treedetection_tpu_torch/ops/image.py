@@ -1,7 +1,9 @@
-"""Image preprocessing on the device: BGR normalization and bilinear resize.
+"""Image preprocessing on the device: BGR normalization, bilinear resize,
+16-bit rescale and NDVI.
 
 Counterpart of ``treedetection_tpu/ops/image.py``.  The resize keeps the
 JAX package's half-pixel interpolation matrices, applied as two matmuls.
+Every op runs on the device of the tensor it is given.
 """
 
 from __future__ import annotations
@@ -75,3 +77,33 @@ def normalize_bgr(rgb: torch.Tensor,
     mean = torch.tensor(pixel_mean, dtype=torch.float32, device=rgb.device)
     std = torch.tensor(pixel_std, dtype=torch.float32, device=rgb.device)
     return (bgr - mean) / std
+
+
+def ndvi_from_rgbi(rgbi: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """NDVI = (NIR - R) / (NIR + R + eps) in float32 from an RGBI tensor
+    (..., 4): channel 0 red, channel 3 near infrared, both scaled by 1/255
+    (the reference's numba kernel, ``helpers.py:862-896``)."""
+    r = rgbi[..., 0].to(torch.float32) / 255.0
+    nir = rgbi[..., 3].to(torch.float32) / 255.0
+    return (nir - r) / (nir + r + eps)
+
+
+def rescale_16bit(img: torch.Tensor) -> torch.Tensor:
+    """16-bit -> 8-bit range rescale in float32 (reference
+    ``prediction.py:167``)."""
+    return img.to(torch.float32) / 257.0
+
+
+def rgbi_to_model_input(rgbi: torch.Tensor, out_size: int,
+                        pixel_mean: Tuple[float, ...] = (103.53, 116.28, 123.675),
+                        pixel_std: Tuple[float, ...] = (1.0, 1.0, 1.0),
+                        is_16bit: bool = False) -> torch.Tensor:
+    """Tile -> model input: optional 16-bit rescale, BGR reorder, normalize,
+    resize to the square model resolution.  HWC or NHWC in, the same out."""
+    x = rgbi
+    if is_16bit:
+        x = rescale_16bit(x)
+    x = normalize_bgr(x, pixel_mean, pixel_std)
+    if x.shape[-3] != out_size or x.shape[-2] != out_size:
+        x = resize_bilinear(x, out_size, out_size)
+    return x

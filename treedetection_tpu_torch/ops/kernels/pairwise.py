@@ -58,6 +58,7 @@ _MODE = {"iou": 0, "containment": 1, "dedupe": 2}
 # per call, and "pairs" one per relation_pairs call that compacts on the card)
 launches: Dict[str, int] = {"iou": 0, "containment": 0, "dedupe": 0,
                             "pairs": 0}
+_count_lock = threading.Lock()
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
@@ -70,6 +71,13 @@ _ARG_TYPES = {
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
+
+
+def _count(mode: str) -> None:
+    """One launch more on ``launches[mode]``: the crown filter calls the
+    wrappers from several threads."""
+    with _count_lock:
+        launches[mode] += 1
 
 
 def build() -> Path:
@@ -141,7 +149,7 @@ def _launch_into(mode: str, a: torch.Tensor, b: torch.Tensor,
             rc = lib.td_pairwise_boxes(*args, _MODE[mode], float(t0),
                                        float(t1), stream)
     _raise_on(rc, f"{entry}({mode})")
-    launches[mode] += 1
+    _count(mode)
 
 
 def _launch(mode: str, a: torch.Tensor, b: torch.Tensor, t0: float,
@@ -375,7 +383,7 @@ def _pair_ends_into(bits: torch.Tensor, n_cols: int, row_offset: int,
             bits.data_ptr(), bits.stride(0), bits.shape[0], n_cols,
             int(row_offset), int(drop_diagonal), counts.data_ptr(), stream),
             "td_relation_row_counts")
-        launches["pairs"] += 1
+        _count("pairs")
         torch.cumsum(counts, 0, out=ends)
 
 

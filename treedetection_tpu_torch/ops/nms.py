@@ -61,3 +61,24 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
         if torch.equal(keep, prev):
             break
     return torch.zeros_like(keep).scatter(-1, order, keep)
+
+
+def batched_nms(boxes: torch.Tensor, scores: torch.Tensor, idxs: torch.Tensor,
+                iou_threshold: float) -> torch.Tensor:
+    """Class- or level-aware NMS of (N, 4) boxes -> (N,) bool keep-mask, by
+    the coordinate-offset trick: each ``idxs`` group is shifted past the
+    largest finite coordinate, so boxes of different groups never overlap."""
+    finite = torch.where(torch.isfinite(boxes), boxes,
+                         torch.zeros_like(boxes))
+    max_coord = finite.max() + 1.0
+    offsets = idxs.to(boxes.dtype) * max_coord
+    return nms_mask(boxes + offsets[:, None], scores, iou_threshold)
+
+
+def top_k_after_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                    keep: torch.Tensor, k: int):
+    """The k highest-scoring kept entries, padded with -inf scores (ties to
+    the lower index) -> (boxes (k, 4), scores (k,), source indices (k,))."""
+    masked = torch.where(keep, scores, torch.full_like(scores, float("-inf")))
+    top_scores, idx = stable_topk(masked, k)
+    return boxes[idx], top_scores, idx

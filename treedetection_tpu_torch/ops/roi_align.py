@@ -784,3 +784,4 @@ def multilevel_roi_align(fmaps: Sequence[torch.Tensor], boxes: torch.Tensor,
     if return_overflow:
         return out, inexact.sum().to(torch.int32)
     return out
+

@@ -56,6 +56,7 @@ from treedetection_tpu_torch.ops.roi_align import report_overflow_host
 from treedetection_tpu_torch.parallel.mesh import (
     make_mesh, replicate, sharded_forward)
 from treedetection_tpu_torch.preprocessing import load_tile_metadata
+from treedetection_tpu_torch.utils.profiling import profile_trace
 
 # Timing and counters of the most recent Predictor run.
 LAST_RUN_STATS: Dict[str, float] = {}
@@ -295,7 +296,8 @@ class Predictor:
                 json.dump({"bounds": [float(v) for v in src.bounds]}, fh)
             os.replace(tmp, sidecar)
         try:
-            n = self._predict_image(src, items, tifpath, output_dir)
+            with profile_trace(self.config.get("profile_dir")):
+                n = self._predict_image(src, items, tifpath, output_dir)
         finally:
             src.close()
             self._band_keep = None
