@@ -6,7 +6,7 @@
 Phases (each prints JSON lines; any failure exits non-zero).  ``--phases``
 takes a comma-separated subset of
 build,kernel,predictor,model,pipeline,pipeline_multihost,pipeline_two_model,
-train,eval,autolabel:
+train,train_sharded,eval,autolabel:
 
 1. build     — compile the port's native libraries from the sources in the
                checkout (one nvcc per CUDA kernel source, g++ for the host
@@ -86,6 +86,20 @@ train,eval,autolabel:
                the card held against the same step on the CPU; the
                from-scratch weights folded, saved and served by the
                Predictor over phase 3's raster (K1 twice per batch).
+   train_sharded — ``make_sharded_train_step`` and ``train_model(mesh=
+               group)``: two processes on the one card (torchrun's
+               environment, gloo, both on cuda:0; no multi-GPU speed is
+               measured): 3 fp32 steps at 256^2 (batch norm, remat, no
+               TF32, deterministic algorithms) at a global batch of 2 held
+               against one process at batch 2 (every loss term at step 1,
+               the RPN terms at every step, each tensor's update, the
+               running statistics; the one-process step run twice for its
+               own spread); 10 steps at
+               phase 7's width at a global batch of 4 (2 per rank) with one
+               validation (s/step and peak GiB per rank, the loss falls);
+               the ranks' state dicts equal bit for bit after both; rank
+               0's checkpoint, which must be that state, folded and served
+               over phase 3's raster (K1 twice per batch).
 8. eval      — the crowns that phases 3 and 7 served (the shipped and the
                30-step checkpoint, K1 twice per batch) stitched into GPKGs
                and scored against the phase-3 raster's own disc polygons
@@ -112,6 +126,7 @@ available or the port's package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -131,8 +146,8 @@ H100_BYTES_PER_S = 3.35e12          # HBM3, SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,     # CUDA cores, no tensor cores
               "bfloat16": 989e12}   # dense tensor cores
 PHASES = ("build", "kernel", "predictor", "model", "pipeline",
-          "pipeline_multihost", "pipeline_two_model", "train", "eval",
-          "autolabel")
+          "pipeline_multihost", "pipeline_two_model", "train",
+          "train_sharded", "eval", "autolabel")
 ROI_LIBRARIES = ("roi_pool_flat", "roi_pool_levels", "roi_pool_resident")
 K6_CHUNKS = (1, 2, 4, 8, 16, 32)   # boxes per block timed in the kernel phase
 PAIRWISE_BLOCK_ROWS, PAIRWISE_COLS = 8192, 32768   # one production row block
@@ -1697,6 +1712,54 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _spawn_ranks(root: Path, entry: str, n: int, timeout_s: float,
+                 line_prefix: str, phase: str, one_host: bool, **extra):
+    """``n`` processes of this script with ``entry ROOT`` and torchrun's
+    environment on 127.0.0.1 (``one_host``: as one host's ``n`` local
+    ranks; else as ``n`` hosts of one process each), plus ``extra`` ->
+    each rank's last JSON line that starts with ``line_prefix``; fails
+    the phase if one fails or outlasts ``timeout_s``.  Every process is
+    stopped before it returns."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TREEDETECTION_", "TD_ROI_", "LOCAL_"))}
+    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(n), **extra)
+    procs = []
+    t0 = time.time()
+    for rank in range(n):
+        local = {"LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(n)} \
+            if one_host else {}
+        log = open(root / f"rank_{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), entry,
+             str(root)], env=dict(env, RANK=str(rank), **local),
+            stdout=log, stderr=subprocess.STDOUT), log))
+    rows, failed = [], []
+    try:
+        for rank, (p, log) in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(timeout_s - (time.time() - t0), 1))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            log.close()
+            text = Path(log.name).read_text()
+            line = next((ln for ln in reversed(text.splitlines())
+                         if ln.startswith(line_prefix)), None)
+            if rc != 0 or line is None:
+                failed.append((rank, rc, text[-4000:]))
+            else:
+                rows.append(json.loads(line))
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    if failed:
+        fail(f"{phase}: ranks failed: {failed}")
+    return rows
+
+
 def phase_pipeline_multihost(state, workdir: Path):
     """``process_files`` on a copy of the pipeline phase's sheets as two
     hosts: two processes on the one card, torchrun's environment, gloo
@@ -1708,44 +1771,13 @@ def phase_pipeline_multihost(state, workdir: Path):
         (root / sub).mkdir(parents=True)
         for p in sorted((src / sub).glob("*.tif")):
             os.link(p, root / sub / p.name)
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("TREEDETECTION_", "TD_ROI_", "LOCAL_"))}
-    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
-               WORLD_SIZE=str(MULTIHOST_HOSTS), TD_PAIRS_DEVICE="1")
-    procs = []
     t0 = time.time()
-    for rank in range(MULTIHOST_HOSTS):
-        log = open(root / f"host_{rank}.log", "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()),
-             "--multihost-child", str(root)], env=dict(env, RANK=str(rank)),
-            stdout=log, stderr=subprocess.STDOUT), log))
-    rows, failed = [], []
-    try:
-        for rank, (p, log) in enumerate(procs):
-            try:
-                rc = p.wait(timeout=max(
-                    MULTIHOST_CHILD_TIMEOUT_S - (time.time() - t0), 1))
-            except subprocess.TimeoutExpired:
-                rc = "timeout"
-            log.close()
-            text = Path(log.name).read_text()
-            line = next((ln for ln in reversed(text.splitlines()) if
-                         ln.startswith('{"phase": "pipeline_multihost_host"')),
-                        None)
-            if rc != 0 or line is None:
-                failed.append((rank, rc, text[-4000:]))
-            else:
-                rows.append(json.loads(line))
-    finally:
-        for p, log in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            log.close()
+    rows = _spawn_ranks(root, "--multihost-child", MULTIHOST_HOSTS,
+                        MULTIHOST_CHILD_TIMEOUT_S,
+                        '{"phase": "pipeline_multihost_host"',
+                        "pipeline_multihost", one_host=False,
+                        TD_PAIRS_DEVICE="1")
     wall = time.time() - t0
-    if failed:
-        fail(f"pipeline_multihost: hosts failed: {failed}")
     for row in rows:
         emit(row)
     want = state["pipeline_crowns"]
@@ -2214,6 +2246,358 @@ def phase_train(state, workdir: Path):
              f"twice per batch and no other)")
     state["train"] = row
     state["pred_trained_dir"] = out
+    state["train_inputs"] = {"train_shards": train_shards,
+                             "val_shards": val_shards, "config": mc,
+                             "check_batch": batch}
+
+
+# --- phase 7b: the multi-device train step, two ranks on the one card --------
+
+SHARDED_RANKS = 2
+SHARDED_STEPS = 10         # at full width, one validation at the last step
+SHARDED_CHECK_STEPS = 3    # the fp32 check against one process
+SHARDED_CHILD_TIMEOUT_S = 600
+SHARDED_DEVICE = "cuda:0"  # both ranks share the one card
+# the fp32 check, two ranks against one process at the global batch (the
+# port's CPU tests' tolerances): each tensor's update within UPDATE_L2_RTOL
+# of its update's L2 norm (+ 1e-6 of the tensor's, + 1e-12), the running
+# statistics within STATS_RTOL of the largest; losses within LOSS_RTOL
+UPDATE_L2_RTOL = 3e-2
+STATS_RTOL = 1e-4
+# after an update, the classifier's term (and the total with it) depends on
+# which proposals survive top-k and NMS over RPN scores that differ in the
+# last bits: a background proposal more or less moves it by up to ~1e-3,
+# above LOSS_RTOL, so at steps 2-3 LOSS_RTOL holds the RPN terms, which do
+# not depend on the proposals, and the rest is reported; the updates hold
+# every step's gradients through UPDATE_L2_RTOL
+PROPOSAL_FREE_TERMS = ("rpn_objectness", "rpn_regression")
+
+
+def _state_digest(state_dict) -> str:
+    """sha256 over the state dict's keys and each tensor's bytes in logical
+    order: equal digests are equal replicas, bit for bit."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(state_dict):
+        h.update(k.encode())
+        h.update(state_dict[k].detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """torch's deterministic algorithms (warn-only) and cuDNN's inside the
+    block, so that the fp32 check compares the sharding and not run-to-run
+    noise: without them, atomics in the backward move the one-process
+    3-step loss by ~1e-4 against itself.  Yields a list that receives, at
+    the block's end, the ops torch warned have no deterministic
+    implementation."""
+    import warnings
+    import torch
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.backends.cudnn.deterministic)
+    ops = []
+    with warnings.catch_warnings(record=True) as records:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            yield ops
+        finally:
+            torch.use_deterministic_algorithms(before[0])
+            torch.backends.cudnn.deterministic = before[1]
+    ops += sorted({str(w.message).split(" does not have")[0]
+                   for w in records if "deterministic" in str(w.message)})
+
+
+def train_child(root: Path) -> None:
+    """One rank of the ``train_sharded`` phase (run as ``chip_smoke.py
+    --train-child ROOT`` with torchrun's environment): the group over gloo,
+    the fp32 check's steps at the global batch, then ``train_model(mesh=
+    group)`` at full width; one JSON line of its losses, times, peak and
+    the digest of its state dict."""
+    import pickle
+    from datetime import timedelta
+    import torch
+    import torch.distributed as dist
+    from treedetection_tpu_torch.models.mask_rcnn import MaskRCNN
+    from treedetection_tpu_torch.train import train_model
+    from treedetection_tpu_torch.train.data import ShardDataset
+    from treedetection_tpu_torch.train.train import (
+        make_optimizer, make_sharded_train_step)
+    dist.init_process_group(
+        "gloo", timeout=timedelta(seconds=SHARDED_CHILD_TIMEOUT_S))
+    rank, group = dist.get_rank(), dist.group.WORLD
+    with open(root / "spec.pkl", "rb") as fh:
+        spec = pickle.load(fh)
+
+    # 1. the fp32 check's steps at the global batch
+    model = MaskRCNN(spec["check_config"])
+    model.load_state_dict(torch.load(root / "check_init.pt"))
+    model.to(SHARDED_DEVICE)
+    tc = spec["check_train_config"]
+    step = make_sharded_train_step(model, make_optimizer(tc, model), group,
+                                   tc)
+    batch = {k: torch.from_numpy(v).to(SHARDED_DEVICE)
+             for k, v in spec["check_batch"].items()}
+    with _deterministic() as nondet:
+        check_losses = [{k: float(v) for k, v in step(batch).items()}
+                        for _ in range(SHARDED_CHECK_STEPS)]
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               root / f"check_{rank}.pt")
+    del model, step, batch
+
+    # 2. full width from scratch, validation at the last step
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state_dict, hist = train_model(
+        ShardDataset(spec["train_shards"], spec["batch"]),
+        ShardDataset(spec["val_shards"], spec["batch"], shuffle=False),
+        model_cfg=spec["config"], train_cfg=spec["train_config"],
+        mesh=group, checkpoint_path=str(root / "trained.npz"),
+        device=SHARDED_DEVICE)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    losses = hist["total_loss"]
+    # what the step's collectives cost alone on this group: the flat
+    # gradient, and one batch norm's stacked channel sums (2 x 256)
+    n_grad = sum(v.numel() for k, v in state_dict.items()
+                 if not k.endswith((".mean", ".var")))
+    allreduce_ms = {}
+    for name, numel, reps in (("gradient_flat", n_grad, 5),
+                              ("bn_sums_2x256", 512, 50)):
+        buf = torch.zeros(numel, device=SHARDED_DEVICE)
+        dist.all_reduce(buf)
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            dist.all_reduce(buf)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        allreduce_ms[name] = statistics.median(times)
+    emit({"phase": "train_sharded_rank", "rank": rank,
+          "gradient_floats": n_grad, "allreduce_ms": allreduce_ms,
+          "ranks": dist.get_world_size(), "check_losses": check_losses,
+          "check_nondeterministic_ops": nondet,
+          "steps": len(losses), "wall_s": wall,
+          "s_per_step_median": statistics.median(
+              hist["step_s"][TRAIN_TIMING_WARMUP:]),
+          "first_step_s": hist["step_s"][0],
+          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "losses": losses, "val_loss": hist["val_loss"],
+          "digest": _state_digest(state_dict)})
+    dist.destroy_process_group()
+
+
+def _loss_errors(got, ref):
+    """Per step, each loss term's relative error against ``ref``'s."""
+    return [{k: abs(g[k] - r[k]) / max(abs(r[k]), 1e-30) for k in r}
+            for g, r in zip(got, ref)]
+
+
+def _update_errors(before, ref, got):
+    """Per tensor, ``got``'s update (or running statistic) against
+    ``ref``'s as a share of its tolerance (<= 1 passes), and the frozen
+    tensors that moved."""
+    shares = {}
+    for k, r in ref.items():
+        r, g, b = r.double(), got[k].double(), before[k].double()
+        if k.endswith((".mean", ".var")):
+            shares[k] = float((g - r).abs().max()) / (
+                STATS_RTOL * max(float(r.abs().max()), 1.0))
+            continue
+        ref_up = r - b
+        shares[k] = float((g - b - ref_up).norm()) / (
+            UPDATE_L2_RTOL * float(ref_up.norm()) + 1e-6 * float(r.norm())
+            + 1e-12)
+    return shares
+
+
+def phase_train_sharded(state, workdir: Path):
+    """``make_sharded_train_step`` and ``train_model(mesh=group)``: two
+    processes on the one card over gloo (torchrun's environment, both on
+    cuda:0): the fp32 check against one process at the global batch, 10
+    steps at full width, and rank 0's checkpoint folded and served."""
+    import dataclasses
+    import pickle
+    import torch
+    from treedetection_tpu_torch import prediction
+    from treedetection_tpu_torch.models.convert import (
+        fold_batch_stats, load_checkpoint, save_checkpoint_npz,
+        to_flax_params)
+    from treedetection_tpu_torch.models.mask_rcnn import (
+        MaskRCNN, create_model)
+    from treedetection_tpu_torch.ops.kernels import roi_align as k1
+    from treedetection_tpu_torch.train import TrainConfig
+    from treedetection_tpu_torch.train.train import (
+        make_optimizer, make_train_step)
+    _clear_layout_env()
+    t_phase = time.time()
+    inputs = state["train_inputs"]
+    root = workdir / "train_sharded"
+    root.mkdir()
+    batch = TRAIN_BATCH                                # 2 per rank
+    mc = inputs["config"]
+    check_cfg = dataclasses.replace(mc, input_size=CHECK_SIZE, bf16=False)
+    check_tc = TrainConfig.from_preset("scratch", backbone_freeze=0)
+    tc = TrainConfig.from_preset(
+        "scratch", max_iter=SHARDED_STEPS, ims_per_batch=batch, max_gt=48,
+        backbone_freeze=0, eval_period=SHARDED_STEPS, patience=10,
+        max_eval_batches=2)
+    before = {k: v.detach().clone()                    # seeded
+              for k, v in create_model(check_cfg).state_dict().items()}
+    torch.save(before, root / "check_init.pt")
+    with open(root / "spec.pkl", "wb") as fh:
+        pickle.dump({"check_config": check_cfg, "check_train_config":
+                     check_tc, "check_batch": inputs["check_batch"],
+                     "config": mc, "train_config": tc, "batch": batch,
+                     "train_shards": inputs["train_shards"],
+                     "val_shards": inputs["val_shards"]}, fh)
+
+    # 1. one process at the global batch, twice: the fp32 check's
+    # reference, and the spread of the step against itself
+    def one_process():
+        model = MaskRCNN(check_cfg)
+        model.load_state_dict(before)
+        model.to(SHARDED_DEVICE)
+        step = make_train_step(model, make_optimizer(check_tc, model),
+                               check_tc)
+        tb = {k: torch.from_numpy(v).to(SHARDED_DEVICE)
+              for k, v in inputs["check_batch"].items()}
+        with _deterministic() as nondet:
+            losses = [{k: float(v) for k, v in step(tb).items()}
+                      for _ in range(SHARDED_CHECK_STEPS)]
+        return losses, {k: v.cpu() for k, v in model.state_dict().items()}, \
+            nondet
+
+    (ref_losses, ref_state, nondet), (rep_losses, rep_state, _) = \
+        one_process(), one_process()
+    torch.cuda.empty_cache()
+
+    # 2. the two ranks: the check's steps, then full width
+    t0 = time.time()
+    rows = _spawn_ranks(root, "--train-child", SHARDED_RANKS,
+                        SHARDED_CHILD_TIMEOUT_S,
+                        '{"phase": "train_sharded_rank"', "train_sharded",
+                        one_host=True, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    ranks_wall = time.time() - t0
+    for row in rows:
+        emit({k: v for k, v in row.items() if k != "losses"})
+    checks = [torch.load(root / f"check_{r}.pt")
+              for r in range(SHARDED_RANKS)]
+    check_equal = all(torch.equal(checks[0][k], c[k])
+                      for c in checks[1:] for k in checks[0])
+    loss_rel = _loss_errors(rows[0]["check_losses"], ref_losses)
+    # held: every term before the first update, then the terms that do not
+    # depend on which proposals survive top-k and NMS
+    held = max(v for i, errs in enumerate(loss_rel) for k, v in errs.items()
+               if i == 0 or k in PROPOSAL_FREE_TERMS)
+    shares = _update_errors(before, ref_state, checks[0])
+    worst = sorted(shares.items(), key=lambda kv: -kv[1])[:3]
+    rep_worst = max(_update_errors(before, ref_state, rep_state).items(),
+                    key=lambda kv: kv[1])
+    rep_rel = _loss_errors(rep_losses, ref_losses)
+    digests = {row["digest"] for row in rows}
+    losses = rows[0]["losses"]
+
+    # 3. rank 0's checkpoint, folded and served
+    ckpt = root / "trained.npz"
+    trained = load_checkpoint(str(ckpt), depth=50) if ckpt.is_file() else {}
+    ckpt_equal = bool(trained) and _state_digest(trained) in digests
+    npz = root / "served.npz"
+    save_checkpoint_npz(str(npz), fold_batch_stats(to_flax_params(trained)))
+    pred = prediction.Predictor(predictor_config(workdir), str(npz))
+    if pred.used_random_init:
+        fail("train_sharded: the trained checkpoint did not load")
+    out = workdir / "pred_trained_sharded"
+    _reset_roi_launches(k1)               # just before the serving pass
+    written = pred(str(state["tif"]), state["meta"], str(out))
+    torch.cuda.synchronize()
+    counts = _roi_launches(k1)            # just after
+    batches = int(prediction.LAST_RUN_STATS["batches"])
+    files = sorted(out.glob("Prediction_*.json"))
+    crowns = _count_crowns(files, "train_sharded")
+
+    one = state["train"]["remat_on"]
+    row = {"phase": "train_sharded", "ranks": SHARDED_RANKS,
+           "backend": "gloo", "device": SHARDED_DEVICE,
+           "note": "both ranks share one card: no multi-GPU speed is "
+                   "measured, and NCCL is untried",
+           "card": gpu_line(),
+           "fp32_check": {
+               "size": CHECK_SIZE, "global_batch": 2, "norm": "batch",
+               "remat": check_cfg.remat, "tf32": False,
+               "steps": SHARDED_CHECK_STEPS, "losses_one_process":
+               ref_losses, "losses_ranks": [r["check_losses"] for r in rows],
+               "loss_rel_err": loss_rel, "loss_rel_err_held": held,
+               "loss_terms_held": "every term at step 1; at later steps "
+                                  + ", ".join(PROPOSAL_FREE_TERMS),
+               "worst_update_share_of_tolerance": worst,
+               "one_process_again": {"loss_rel_err": rep_rel,
+                                     "worst_update_share": rep_worst},
+               "deterministic": "torch.use_deterministic_algorithms("
+                                "warn_only=True), cudnn.deterministic",
+               "nondeterministic_ops": sorted(set(nondet).union(
+                   *(r["check_nondeterministic_ops"] for r in rows))),
+               "ranks_bit_equal": check_equal,
+               "tolerance": {"loss_rtol": LOSS_RTOL,
+                             "update_l2_rtol": UPDATE_L2_RTOL,
+                             "stats_rtol": STATS_RTOL}},
+           "full_width": {
+               "config": {"depth": 50, "input_size": TRAIN_SIZE,
+                          "global_batch": batch, "per_rank": batch //
+                          SHARDED_RANKS, "proposals": [1000, 512],
+                          "bf16": True, "norm": "batch", "remat": True,
+                          "steps": SHARDED_STEPS},
+               "s_per_step_median_by_rank":
+               [r["s_per_step_median"] for r in rows],
+               "peak_gib_by_rank": [r["peak_gib"] for r in rows],
+               "gradient_floats": rows[0]["gradient_floats"],
+               "allreduce_ms_by_rank": [r["allreduce_ms"] for r in rows],
+               "batch_norm_layers": sum(
+                   k.endswith(".norm.mean") for k in trained),
+               "loss_first": losses[0], "loss_last": losses[-1],
+               "val_loss": rows[0]["val_loss"],
+               "ranks_bit_equal": len(digests) == 1,
+               "checkpoint_is_the_ranks_state": ckpt_equal,
+               "one_process_batch_4_remat": {
+                   "s_per_step_median": one["s_per_step_median"],
+                   "peak_gib": one["peak_gib"]},
+               "ranks_wall_s": ranks_wall},
+           "serve": {"tiles": written, "files": len(files),
+                     "batches": batches, "crowns": crowns,
+                     "launches": counts},
+           "k1_launches": counts["k1"],
+           "seconds": time.time() - t_phase}
+    emit(row)
+    if [r["rank"] for r in rows] != list(range(SHARDED_RANKS)) or \
+            any(r["ranks"] != SHARDED_RANKS for r in rows):
+        fail(f"train_sharded: ranks {[(r['rank'], r['ranks']) for r in rows]}")
+    if held > LOSS_RTOL or worst[0][1] > 1.0:
+        fail(f"train_sharded: two ranks disagree with one process: losses "
+             f"{loss_rel}, worst updates {worst}")
+    if not check_equal or len(digests) != 1:
+        fail("train_sharded: the ranks' state dicts differ")
+    if any(r["check_losses"] != rows[0]["check_losses"] or
+           r["losses"] != losses for r in rows):
+        fail("train_sharded: the ranks report different losses")
+    if not all(math.isfinite(v) for v in losses + rows[0]["val_loss"]) or \
+            len(losses) != SHARDED_STEPS or not rows[0]["val_loss"]:
+        fail(f"train_sharded: losses {losses}, validation "
+             f"{rows[0]['val_loss']}")
+    if not losses[-1] < losses[0]:
+        fail(f"train_sharded: the loss did not fall: {losses}")
+    if not ckpt_equal:
+        fail("train_sharded: rank 0's checkpoint is not the ranks' state")
+    if written != 16 or len(files) != 16:
+        fail(f"train_sharded: served {written} tiles, {len(files)} files")
+    if counts != {"k1": 2 * batches, "k5": 0, "k6": 0}:
+        fail(f"train_sharded: launches {counts} for {batches} batches "
+             f"(expected K1 twice per batch and no other)")
+    state["train_sharded"] = row
 
 
 # --- phase 8: eval of the served crowns ---------------------------------------
@@ -2597,7 +2981,9 @@ def kernels_line(state):
                     "predictor_split":
                     state["predictor_split"]["launches"]["k1"],
                     "pipeline_two_model": two["launches"]["k1"],
-                    "train": state["train"]["k1_launches"]}, ""),
+                    "train": state["train"]["k1_launches"],
+                    "train_sharded": state["train_sharded"]["k1_launches"]},
+                   ""),
         _roi_entry("k5", {"": roi["k5"]}, two["launches"]["k5"],
                    {"pipeline_two_model": two["launches"]["k5"],
                     "predictor_levels":
@@ -2689,6 +3075,8 @@ def main() -> None:
                          "and write its kernel table and trace to DIR")
     ap.add_argument("--multihost-child", type=Path, default=None,
                     metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--train-child", type=Path, default=None,
+                    metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = args.phases.split(",")
     if set(phases) - set(PHASES):
@@ -2702,6 +3090,9 @@ def main() -> None:
     if "train" in phases and "predictor" not in phases:
         fail("the train phase serves on the predictor phase's raster: name "
              "both")
+    if "train_sharded" in phases and "train" not in phases:
+        fail("the train_sharded phase trains on the train phase's shards: "
+             "name both")
     if "eval" in phases and not {"predictor", "train"} <= set(phases):
         fail("the eval phase scores the predictor and train phases' served "
              "crowns: name all three")
@@ -2720,6 +3111,9 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     if args.multihost_child is not None:
         multihost_child(args.multihost_child)
+        return
+    if args.train_child is not None:
+        train_child(args.train_child)
         return
     t_start = time.time()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2745,6 +3139,8 @@ def main() -> None:
             phase_pipeline_two_model(state, work)
         if "train" in phases:
             phase_train(state, work)
+        if "train_sharded" in phases:
+            phase_train_sharded(state, work)
         if "eval" in phases:
             phase_eval(state, work)
         if "autolabel" in phases:

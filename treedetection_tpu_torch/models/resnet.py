@@ -12,6 +12,13 @@ into the frozen layout).  Both keep their affine as the parameters
 ``norm.mean`` and ``norm.var``.  ``remat`` recomputes each bottleneck in
 the backward pass (``torch.utils.checkpoint``).
 
+Over several processes (``train.train.make_sharded_train_step``) batch norm
+takes its statistics over the global batch, as Flax's does under ``jit``
+over a mesh: :func:`set_sync_group` gives every :class:`BatchNorm` a
+``torch.distributed`` group as module state, so that remat's recomputation
+in the backward pass, which runs outside any block of the forward,
+synchronises as the forward did.
+
 The public interface keeps the JAX package's NHWC layout: :class:`ResNetFPN`
 takes (B, H, W, 3) and returns [P2..P6] as (B, H_l, W_l, 256).  Inside, the
 tensors are NCHW in channels_last memory, so both conversions are free views.
@@ -25,6 +32,7 @@ import contextlib
 from typing import Dict, Iterator, List, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -71,11 +79,39 @@ def collect_batch_stats() -> Iterator[Dict["BatchNorm", Tuple[torch.Tensor,
         _STATS.pop()
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """All-reduce (SUM) over ``group`` whose gradient is the all-reduce of
+    the upstream gradients (``torch.distributed.nn.functional.all_reduce``
+    computes the same and is deprecated)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 class BatchNorm(nn.Module):
     """Batch norm on the batch's statistics, always, in float32 at least
     (the output too, as Flax's ``nn.BatchNorm(dtype=float32)``).  The running averages
     follow Flax: momentum 0.9 and the BIASED batch variance; they move only
-    through :func:`updated_batch_stats`."""
+    through :func:`updated_batch_stats`.
+
+    With ``sync_group`` set (:func:`set_sync_group`) to a group of more than
+    one process, the statistics are those of the global batch: each
+    process all-reduces its channel sums of ``x`` and ``x**2`` in one
+    stacked tensor, and takes Flax's fast variance ``E[x**2] - E[x]**2``
+    (clamped at 0) over every process's equal chunk.  The all-reduce's
+    gradient is the all-reduce of the upstream gradients, so the backward
+    pass exchanges them too.  Without a group, or with a group of one,
+    the layer is ``F.batch_norm``."""
 
     def __init__(self, features: int, zero_gamma: bool = False):
         super().__init__()
@@ -84,24 +120,56 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.sync_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # momentum 1 leaves exactly the batch's mean and unbiased variance
-        # in the two buffers: no second pass over x.  The call is the same
-        # whether or not it records, so remat's recomputation saves the
-        # same tensors as the first forward.
         dt = torch.promote_types(x.dtype, torch.float32)
         x = x.to(dt)
         c = x.shape[1]
-        mean = torch.zeros(c, dtype=dt, device=x.device)
-        var = torch.zeros(c, dtype=dt, device=x.device)
-        y = F.batch_norm(x, mean, var, self.scale.to(dt), self.bias.to(dt),
-                         training=True, momentum=1.0, eps=BN_EPS)
+        n = x.numel() // c
         stats = _STATS[-1] if _STATS else None
-        if stats is not None and self not in stats:
-            n = x.numel() // c
-            stats[self] = (mean, var * ((n - 1) / n))
+        record = stats is not None and self not in stats
+        group = self.sync_group
+        if group is not None and dist.get_world_size(group) > 1:
+            y, mean, var = self._synced(x, group, n * dist.get_world_size(
+                group))
+        else:
+            # momentum 1 leaves exactly the batch's mean and unbiased
+            # variance in the two buffers: no second pass over x.  The call
+            # is the same whether or not it records, so remat's
+            # recomputation saves the same tensors as the first forward.
+            mean = torch.zeros(c, dtype=dt, device=x.device)
+            var = torch.zeros(c, dtype=dt, device=x.device)
+            y = F.batch_norm(x, mean, var, self.scale.to(dt),
+                             self.bias.to(dt), training=True, momentum=1.0,
+                             eps=BN_EPS)
+            if record:
+                var = var * ((n - 1) / n)
+        if record:
+            stats[self] = (mean, var)
         return y
+
+    def _synced(self, x: torch.Tensor, group, n_global: int):
+        """-> (y, mean, biased var) over the group's global batch, as Flax
+        normalizes: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+        dt = x.dtype
+        sums = _AllReduceSum.apply(
+            torch.stack([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3))]),
+            group)
+        mean = sums[0] / n_global
+        var = torch.clamp(sums[1] / n_global - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + BN_EPS) * self.scale.to(dt)
+        y = ((x - mean[:, None, None]) * mul[:, None, None]
+             + self.bias.to(dt)[:, None, None])
+        return y, mean.detach(), var.detach()
+
+
+def set_sync_group(model: nn.Module, group) -> None:
+    """Set ``group`` (a ``torch.distributed`` process group, or None) as
+    the statistics group of every :class:`BatchNorm` in ``model``."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.sync_group = group
 
 
 def updated_batch_stats(model: nn.Module, stats) -> Dict[str, torch.Tensor]:

@@ -1,5 +1,5 @@
-"""Scale-out: the devices a Predictor splits its batches over, and the
-per-host slice of a multi-host run.
+"""Scale-out of inference: the devices a Predictor splits its batches
+over, and the per-host slice of a multi-host run.
 
 Counterpart of ``treedetection_tpu/parallel``:
 
@@ -12,6 +12,14 @@ Counterpart of ``treedetection_tpu/parallel``:
   (``recoveries._shard_suffix``).  Data moves through shared storage;
   ``torch.distributed`` over gloo carries only host metadata (barriers and
   two int64 totals).
+
+Training over several devices needs collectives (the gradient, and batch
+norm's statistics in both passes), so its mesh is not this device list but
+a ``torch.distributed`` process group with one process per device, which
+the caller creates: ``train.train.make_sharded_train_step`` and
+``train_model(..., mesh=group)``.  One process's autograd engine runs a
+device's backward on one thread, where replicas that wait for each other at
+an exchange would block it; separate processes each have their own.
 """
 
 from treedetection_tpu_torch.parallel.mesh import (  # noqa: F401

@@ -23,22 +23,37 @@ at 90% of ``max_iter``, with ``optax.join_schedules``' step offsets).
 Frozen parameters (``requires_grad=False``) and the batch-norm running
 statistics (buffers) are outside it.  Parameters and optimizer state stay
 float32; ``MaskRCNNConfig.bf16`` runs the convs and dense layers in
-bfloat16.  The multi-device step is not ported yet.
+bfloat16.
+
+Over several devices (:func:`make_sharded_train_step`, ``train_model(...,
+mesh=group)``) the JAX package jits the step over a mesh; here the mesh is
+a ``torch.distributed`` process group, one process per device.  Each rank
+runs forward and backward on its equal chunk of the global batch with batch
+norm's statistics taken over the group (``models.resnet.set_sync_group``),
+then one all-reduce averages the flat gradient, and every rank applies the
+same update: the step computes what one device computes at the global
+batch, and the replicas stay equal bit for bit.  Processes, not threads:
+the statistics are exchanged in the backward pass too, also inside remat's
+recomputation, and one process's autograd engine runs a device's backward
+on one thread, where one replica waiting for another would block it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, Iterable, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from treedetection_tpu_torch.models.convert import (
     save_checkpoint_npz, to_flax_params)
 from treedetection_tpu_torch.models.mask_rcnn import (
     MaskRCNN, MaskRCNNConfig, create_model)
+from treedetection_tpu_torch.models.resnet import set_sync_group
 from treedetection_tpu_torch.ops.image import (
     TRAIN_PIXEL_STD_BGR, normalize_bgr)
 from treedetection_tpu_torch.train.losses import mask_rcnn_losses
@@ -207,6 +222,15 @@ def make_train_step(model: MaskRCNN, optimizer: TrainOptimizer,
                                   Dict[str, torch.Tensor]]:
     """-> step(batch of device tensors) -> metrics (0-d tensors): loss,
     backward, one optimizer update, then the running statistics."""
+    return _make_step(model, optimizer, tc, None)
+
+
+def _make_step(model: MaskRCNN, optimizer: TrainOptimizer,
+               tc: Optional[TrainConfig], group
+               ) -> Callable[[Dict[str, torch.Tensor]],
+                             Dict[str, torch.Tensor]]:
+    """The train step; with ``group``, on this rank's chunk, the gradient
+    and the metrics averaged over the group."""
     pixel_std = tc.pixel_std if tc is not None else "torchvision"
 
     def step(batch):
@@ -216,12 +240,94 @@ def make_train_step(model: MaskRCNN, optimizer: TrainOptimizer,
             model, image, batch["boxes"], masks, batch["valid"],
             return_state=True)
         total.backward()
+        if group is not None:
+            _average_gradients(optimizer.params, group)
         optimizer.step()
         load_batch_stats(model, state)
-        return {"total_loss": total.detach(),
-                **{k: v.detach() for k, v in parts.items()}}
+        metrics = {"total_loss": total.detach(),
+                   **{k: v.detach() for k, v in parts.items()}}
+        if group is not None:
+            values = torch.stack(list(metrics.values()))
+            dist.all_reduce(values, group=group)
+            values.div_(dist.get_world_size(group))
+            metrics = dict(zip(metrics, values.unbind()))
+        return metrics
 
     return step
+
+
+def _average_gradients(params: List[torch.nn.Parameter], group) -> None:
+    """One all-reduce (SUM) of the flat gradient over ``group``, divided by
+    its size.  It runs after ``backward()`` returns: the batch norms'
+    collectives of the backward pass (remat's recomputation included) must
+    have the group to themselves."""
+    for p in params:            # every rank's buffer has the same layout
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    dist.all_reduce(flat, group=group)
+    flat.div_(dist.get_world_size(group))
+    # back into the gradients' own memory layouts: the clip's sums of
+    # squares run in memory order
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad.copy_(g.view_as(p))
+
+
+def _rank_chunk(batch: Dict, rank: int, world: int) -> Dict:
+    """Rank ``rank``'s chunk of each array (numpy or torch) of a global
+    batch split into ``world`` equal chunks, in order."""
+    b = len(next(iter(batch.values())))
+    if b % world:
+        raise ValueError(f"a batch of {b} does not split into {world} "
+                         f"equal chunks")
+    n = b // world
+    return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+
+
+def _broadcast_state(model: torch.nn.Module, group) -> None:
+    """Rank 0's parameters and buffers to every rank of ``group``: one
+    broadcast per dtype over a flat copy."""
+    src = dist.get_global_rank(group, 0)
+    tensors = list(model.state_dict().values())
+    with torch.no_grad():
+        for dtype in dict.fromkeys(t.dtype for t in tensors):
+            same = [t for t in tensors if t.dtype == dtype]
+            flat = torch.cat([t.reshape(-1) for t in same])
+            dist.broadcast(flat, src=src, group=group)
+            for t, v in zip(same, flat.split([t.numel() for t in same])):
+                t.copy_(v.view_as(t))
+
+
+def _make_chunk_step(model: MaskRCNN, optimizer: TrainOptimizer, group,
+                     tc: Optional[TrainConfig] = None
+                     ) -> Callable[[Dict[str, torch.Tensor]],
+                                   Dict[str, torch.Tensor]]:
+    """:func:`make_sharded_train_step`'s step on this rank's chunk."""
+    set_sync_group(model, group)
+    _broadcast_state(model, group)
+    return _make_step(model, optimizer, tc, group)
+
+
+def make_sharded_train_step(model: MaskRCNN, optimizer: TrainOptimizer,
+                            mesh, tc: Optional[TrainConfig] = None
+                            ) -> Callable[[Dict[str, torch.Tensor]],
+                                          Dict[str, torch.Tensor]]:
+    """-> step(global batch) -> metrics, over ``mesh``: a
+    ``torch.distributed`` process group (``torch.distributed.group.WORLD``
+    for the default one), one process per device, every process calling
+    the step with the same global batch.
+
+    Each rank takes its equal chunk, in order (a batch that does not split
+    raises ``ValueError``), runs forward and backward on it with batch
+    norm's statistics over the group, all-reduces the flat gradient of the
+    trainable parameters once and divides it by the group's size, then
+    makes :class:`TrainOptimizer`'s update and loads the running
+    statistics.  The metrics are the loss parts averaged over the group.
+    Building the step sets the group on every ``BatchNorm`` of ``model``
+    and broadcasts rank 0's parameters and buffers to every rank."""
+    step = _make_chunk_step(model, optimizer, mesh, tc)
+    rank, world = dist.get_rank(mesh), dist.get_world_size(mesh)
+    return lambda batch: step(_rank_chunk(batch, rank, world))
 
 
 def step_loss_only(model: MaskRCNN, pixel_std: str = "torchvision"
@@ -237,15 +343,22 @@ def step_loss_only(model: MaskRCNN, pixel_std: str = "torchvision"
 
 
 def _evaluate(loss_fn, dataset, to_device, max_batches: int = 8,
-              logger=None) -> Optional[float]:
+              logger=None, group=None) -> Optional[float]:
     """Mean validation loss, or None when the dataset yields nothing (a
     one-shot generator exhausts after the first eval; inf there would count
-    as a plateau and stop early)."""
+    as a plateau and stop early).  With ``group`` each batch's loss is the
+    mean of the ranks' losses on their chunks, all-reduced, so that every
+    rank returns the same value."""
     vals = []
     for i, batch in enumerate(dataset):
         if i >= max_batches:
             break
-        vals.append(float(loss_fn(to_device(batch))))
+        vals.append(loss_fn(to_device(batch)).detach().reshape(1))
+    if vals and group is not None:
+        vals = torch.cat(vals)
+        dist.all_reduce(vals, group=group)
+        vals = vals / dist.get_world_size(group)
+    vals = [float(v) for v in vals]
     if not vals:
         if logger:
             logger.warning(
@@ -282,11 +395,21 @@ class _Prefetcher:
         return staged
 
 
-def _device(device) -> torch.device:
+def _device(device, sharded: bool = False) -> torch.device:
+    """``device`` as a ``torch.device``; raises when it names a card that
+    is not there.  In a sharded run ``"cuda"`` without an index is the
+    process's own card, ``cuda:LOCAL_RANK``."""
+    if sharded and str(device) == "cuda":
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK') or 0)}"
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("train_model: CUDA is not available; pass "
-                           "device='cpu' to train on the CPU")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("train_model: CUDA is not available; pass "
+                               "device='cpu' to train on the CPU")
+        if device.index is not None and \
+                device.index >= torch.cuda.device_count():
+            raise RuntimeError(f"train_model: {device} is not a visible "
+                               f"card ({torch.cuda.device_count()} visible)")
     return device
 
 
@@ -303,7 +426,8 @@ def train_model(dataset: Iterable[Dict[str, np.ndarray]],
                 model_cfg: Optional[MaskRCNNConfig] = None,
                 train_cfg: Optional[TrainConfig] = None,
                 init_params: Optional[Dict[str, torch.Tensor]] = None,
-                logger=None, checkpoint_path: Optional[str] = None,
+                mesh=None, logger=None,
+                checkpoint_path: Optional[str] = None,
                 device="cuda") -> Tuple[Dict[str, torch.Tensor],
                                         Dict[str, list]]:
     """Train with early stopping (the reference ``MyTrainer``'s patience,
@@ -321,10 +445,21 @@ def train_model(dataset: Iterable[Dict[str, np.ndarray]],
     holds ``total_loss`` per step, ``val_loss`` per evaluation and
     ``step_s``, each step's wall seconds (the read-back of its loss
     included).
+
+    ``mesh``: a ``torch.distributed`` process group (one process per
+    device; the caller initialises it, with the backend of its choice:
+    gloo, or NCCL where each rank has a card of its own).  Every rank
+    calls ``train_model`` with the same arguments and iterates the same
+    batches; the step is :func:`make_sharded_train_step`'s, each rank
+    uploads only its chunk of each batch, validation runs on the chunks
+    with the losses all-reduced, so every rank returns the same state dict
+    and history, and only rank 0 writes ``checkpoint_path``.  ``device=
+    "cuda"`` without an index is then ``cuda:LOCAL_RANK``; an explicit
+    index lets ranks share a card.
     """
     tc = train_cfg or TrainConfig.from_preset("update")
     mc = model_cfg or MaskRCNNConfig()
-    dev = _device(device)
+    dev = _device(device, sharded=mesh is not None)
     if init_params is None:
         model = create_model(mc)
     else:
@@ -332,11 +467,22 @@ def train_model(dataset: Iterable[Dict[str, np.ndarray]],
         model.load_state_dict(init_params, strict=True)
     model = model.to(dev).train()
     optimizer = make_optimizer(tc, model)
-    step_fn = make_train_step(model, optimizer, tc)
     prefetch = _Prefetcher(dev)
+    if mesh is None:
+        step_fn = make_train_step(model, optimizer, tc)
+        rank = 0
+
+        def host_chunk(batch):
+            return batch
+    else:
+        step_fn = _make_chunk_step(model, optimizer, mesh, tc)
+        rank, world = dist.get_rank(mesh), dist.get_world_size(mesh)
+
+        def host_chunk(batch):
+            return _rank_chunk(batch, rank, world)
 
     def to_device(batch):
-        return prefetch.get(prefetch.put(batch))
+        return prefetch.get(prefetch.put(host_chunk(batch)))
 
     loss_only = (step_loss_only(model, tc.pixel_std)
                  if val_dataset is not None else None)
@@ -364,12 +510,12 @@ def train_model(dataset: Iterable[Dict[str, np.ndarray]],
             data_iter = iter(dataset)
             return next(data_iter)
 
-    staged = prefetch.put(next_host_batch())
+    staged = prefetch.put(host_chunk(next_host_batch()))
     while it < tc.max_iter:
         t_step = time.perf_counter()
         batch = prefetch.get(staged)
         if it + 1 < tc.max_iter:
-            staged = prefetch.put(next_host_batch())
+            staged = prefetch.put(host_chunk(next_host_batch()))
         metrics = step_fn(batch)
         it += 1
         history["total_loss"].append(float(metrics["total_loss"]))
@@ -380,7 +526,7 @@ def train_model(dataset: Iterable[Dict[str, np.ndarray]],
                         f"({(time.time() - t0) / it:.2f}s/it)")
         if val_dataset is not None and it % tc.eval_period == 0:
             val = _evaluate(loss_only, val_dataset, to_device,
-                            tc.max_eval_batches, logger)
+                            tc.max_eval_batches, logger, group=mesh)
             if val is None:
                 continue  # exhausted iterator: no signal, no early-stop tick
             history["val_loss"].append(val)
@@ -388,7 +534,7 @@ def train_model(dataset: Iterable[Dict[str, np.ndarray]],
                 best_val = val
                 best_params = snapshot()
                 bad_evals = 0
-                if checkpoint_path:
+                if checkpoint_path and rank == 0:
                     save_checkpoint(checkpoint_path, model)
             else:
                 bad_evals += 1
