@@ -6,7 +6,7 @@
 Phases (each prints JSON lines; any failure exits non-zero).  ``--phases``
 takes a comma-separated subset of
 build,kernel,predictor,model,pipeline,pipeline_multihost,pipeline_two_model,
-train,train_sharded,eval,autolabel:
+bench,train,train_sharded,eval,autolabel:
 
 1. build     — compile the port's native libraries from the sources in the
                checkout (one nvcc per CUDA kernel source, g++ for the host
@@ -73,6 +73,19 @@ train,train_sharded,eval,autolabel:
                one Predictor pass over the 16-tile raster of phase 3 under
                ``TD_ROI_RESIDENT=1`` (K6), which must write that phase's
                flat pass's tile files byte for byte.
+   bench     — the bench (``treedetection_tpu_torch/bench.py``) in this
+               process with ``BENCH_DETAIL=1``: its line (every key, rates
+               finite and positive, 400 pipeline tiles, crowns, the card),
+               its five ``bench-detail`` stages, and K1's launches against
+               the count its code implies (twice per forward of the model
+               part and per batch of the two pipeline passes); then K1
+               against its plain version at the bench's own shapes (R101,
+               bf16, batch 8: box pool N=4096 R=7, mask pool N=800 R=14 on
+               the detections and on proposals); then a pipelined pass
+               beside the same forwards run serially, on the host clock
+               and under torch.profiler (the device's busy ms and idle
+               share); then ``treedetection-torch bench`` without the
+               pipeline part.
 7. train     — the port's trainer at example/train_full.py's width: a
                synthetic RGBI raster with crown discs and their polygons as
                a GPKG, cut into 1024^2 uint8 shards (50 m tiles, 20 m
@@ -146,7 +159,7 @@ H100_BYTES_PER_S = 3.35e12          # HBM3, SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,     # CUDA cores, no tensor cores
               "bfloat16": 989e12}   # dense tensor cores
 PHASES = ("build", "kernel", "predictor", "model", "pipeline",
-          "pipeline_multihost", "pipeline_two_model", "train",
+          "pipeline_multihost", "pipeline_two_model", "bench", "train",
           "train_sharded", "eval", "autolabel")
 ROI_LIBRARIES = ("roi_pool_flat", "roi_pool_levels", "roi_pool_resident")
 K6_CHUNKS = (1, 2, 4, 8, 16, 32)   # boxes per block timed in the kernel phase
@@ -181,11 +194,9 @@ def emit(obj) -> None:
 
 
 def gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else \
-        f"nvidia-smi failed: {out.stderr.strip()}"
+    """The card's name and power limit, as the bench reports them."""
+    from treedetection_tpu_torch.bench import gpu_line as bench_gpu_line
+    return bench_gpu_line()
 
 
 LAYOUT_ENV = {"flat": {}, "levels": {"TD_ROI_FLAT": "0"},
@@ -1372,57 +1383,7 @@ def phase_model(state, workdir: Path):
 
 # --- phase 5: process_files end to end ---------------------------------------
 
-SHEET_ORIGIN = (412000.0, 5318000.0)          # top-left corner, UTM32N-ish
-SHEET_PX = 5000                               # 1 km at 0.2 m: 400 tiles of 50 m
 NEIGHBOUR_PX = 1000                           # the adjacent 200 m sheet
-DISCS_PER_KM2 = 7000
-
-
-def write_synthetic_sheet(rgb_path: Path, ndsm_path: Path, side_px: int,
-                          origin, n_discs: int, seed: int) -> None:
-    """A square RGBI sheet at 0.2 m with crown-like discs (2-8 m radius:
-    darker red/blue, raised NIR so that the NDVI gates pass them) on a
-    lighter ground, and its 1 m nDSM with the same discs standing 5-25 m
-    high.  Discs are drawn in local windows."""
-    from treedetection_tpu_torch.geo import Affine, write_geotiff
-    rng = np.random.default_rng(seed)
-    h = w = side_px
-    img = rng.standard_normal((h, w, 4), dtype=np.float32)
-    img *= np.array([12, 12, 12, 10], dtype=np.float32)
-    img += np.array([150, 160, 120, 110], dtype=np.float32)
-    hm = side_px // 5
-    ndsm = np.zeros((hm, hm), dtype=np.float32)
-    for _ in range(n_discs):
-        cy, cx = rng.uniform(0, h), rng.uniform(0, w)
-        rad_m = rng.uniform(2.0, 8.0)
-        rad = rad_m / 0.2
-        y0, y1 = max(int(cy - rad), 0), min(int(cy + rad) + 1, h)
-        x0, x1 = max(int(cx - rad), 0), min(int(cx + rad) + 1, w)
-        yy, xx = np.mgrid[y0:y1, x0:x1]
-        d2 = ((yy - cy) ** 2 + (xx - cx) ** 2) / rad ** 2
-        inside = d2 < 1.0
-        shade = (0.55 + 0.3 * d2[inside]).astype(np.float32)
-        win = img[y0:y1, x0:x1]
-        win[inside, 0] *= shade * 0.6
-        win[inside, 1] *= shade * 0.85
-        win[inside, 2] *= shade * 0.6
-        win[inside, 3] = np.minimum(win[inside, 3] * 1.8, 255)
-        # the same disc on the 1 m grid, as a dome of 5-25 m
-        top = rng.uniform(5.0, 25.0)
-        my0, my1 = max(int(cy / 5 - rad_m), 0), min(int(cy / 5 + rad_m) + 1, hm)
-        mx0, mx1 = max(int(cx / 5 - rad_m), 0), min(int(cx / 5 + rad_m) + 1, hm)
-        myy, mxx = np.mgrid[my0:my1, mx0:mx1]
-        md2 = ((myy + 0.5 - cy / 5) ** 2 + (mxx + 0.5 - cx / 5) ** 2) / rad_m ** 2
-        dome = np.where(md2 < 1.0, top * (1.0 - 0.5 * md2), 0.0)
-        ndsm[my0:my1, mx0:mx1] = np.maximum(ndsm[my0:my1, mx0:mx1], dome)
-    rgb_path.parent.mkdir(parents=True, exist_ok=True)
-    ndsm_path.parent.mkdir(parents=True, exist_ok=True)
-    write_geotiff(str(rgb_path), np.clip(img, 0, 255).astype(np.uint8),
-                  Affine.from_origin(origin[0], origin[1], 0.2, 0.2),
-                  crs=25832, compress="none")
-    write_geotiff(str(ndsm_path), ndsm,
-                  Affine.from_origin(origin[0], origin[1], 1.0, 1.0),
-                  crs=25832, nodata=-9999.0)
 
 
 def pipeline_config(root: Path):
@@ -1494,6 +1455,8 @@ def phase_pipeline(state, workdir: Path):
     from treedetection_tpu_torch.config import Config, prepare_config
     from treedetection_tpu_torch.ops.kernels import pairwise as k234
     from treedetection_tpu_torch.ops.kernels import roi_align as k1
+    from treedetection_tpu_torch.utils.synthetic import (
+        DISCS_PER_KM2, SHEET_ORIGIN, SHEET_PX, write_synthetic_sheet)
     from treedetection_tpu_torch.vector import read_gpkg
     root = workdir / "pipeline"
     t0 = time.time()
@@ -1850,6 +1813,8 @@ def phase_pipeline_two_model(state, workdir: Path):
     from treedetection_tpu_torch import detection
     from treedetection_tpu_torch.config import Config, prepare_config
     from treedetection_tpu_torch.ops.kernels import roi_align as k
+    from treedetection_tpu_torch.utils.synthetic import (
+        DISCS_PER_KM2, SHEET_ORIGIN, SHEET_PX, write_synthetic_sheet)
     from treedetection_tpu_torch.vector import read_gpkg
     from treedetection_tpu_torch.vector.geojson import write_geojson
     root = workdir / "two_model"
@@ -2019,6 +1984,289 @@ def phase_pipeline_two_model(state, workdir: Path):
         fail(f"predictor_resident: the tile files differ from the default "
              f"pass's: {row}")
     state["resident"] = row
+
+
+# --- phase 6b: the bench -------------------------------------------------------
+
+BENCH_SHEET_TILES = 400          # the bench's 1 km^2 sheet in 50 m tiles
+BENCH_PIPELINE_PASSES = 2
+# every rate of the bench's line, and the other numbers that must be > 0
+BENCH_RATES = ("value", "pipelined_tiles_per_sec_min",
+               "pipelined_tiles_per_sec_max", "serial_tiles_per_sec",
+               "pipeline_tiles_per_sec", "pipeline_first_tiles_per_sec")
+BENCH_POSITIVE = ("vs_baseline", "p50_per_tile_ms", "pipeline_wall_s",
+                  "pipeline_first_wall_s", "pipelined_between_run_n")
+
+
+def bench_k1_launches(bench) -> int:
+    """K1 launches that one ``BENCH_DETAIL=1`` run of the bench on the card
+    needs, from its code: two per forward (box and mask pool); the model
+    part's forwards (the detail runs and their warm one, the first run, the
+    compute-only runs, the stream, the device thread's warm forward, and
+    each pipelined pass one batch ahead of its ``max(iters, 5)``), and each
+    pipeline pass's batches of the example configuration over the sheet's
+    tiles."""
+    from treedetection_tpu_torch.config import load_config
+    _, _, iters, passes = bench.bench_setup(on_cpu=False)
+    forwards = (bench.DETAIL_RUNS + 1) + 1 + bench.COMPUTE_RUNS + iters \
+        + 1 + passes * (max(iters, 5) + 1)
+    batches = BENCH_PIPELINE_PASSES * math.ceil(
+        BENCH_SHEET_TILES / load_config(str(bench.EXAMPLE))["batch_size"])
+    return 2 * (forwards + batches)
+
+
+def _bench_line(phase, text, keys):
+    """The bench's last line of ``text``, parsed and checked."""
+    lines = text.strip().splitlines()
+    try:
+        line = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        fail(f"{phase}: the bench's last line is not JSON: {lines[-3:]}")
+    if set(line) != keys:
+        fail(f"{phase}: keys {sorted(line)}, expected {sorted(keys)}")
+    bad = [k for k in BENCH_RATES + BENCH_POSITIVE if k in line and not (
+        isinstance(line[k], (int, float)) and math.isfinite(line[k])
+        and line[k] > 0)]
+    if bad or line["model"] != "mask_rcnn_r101_fpn_1024":
+        fail(f"{phase}: {bad} not finite and positive, or the model is "
+             f"{line['model']}: {line}")
+    if line["gpu"] != gpu_line():
+        fail(f"{phase}: gpu {line['gpu']!r}, nvidia-smi says {gpu_line()!r}")
+    return line
+
+
+def bench_k1_check(bench, model, tiles):
+    """K1 against its plain version at the bench's own shapes, in bfloat16
+    at the kernel phase's tolerance: the bench's model on its staged batch,
+    the box pool over the proposals (N = batch x 512, R = 7), the mask pool
+    over the forward's detections (N = batch x 100, R = 14; all invalid at
+    random init) and, so that it also sees crown-sized boxes, over each
+    image's first 100 proposals.  -> one row per pool."""
+    import torch
+    from treedetection_tpu_torch.models.mask_rcnn import FPN_STRIDES
+    from treedetection_tpu_torch.models.rpn import generate_proposals
+    from treedetection_tpu_torch.ops.image import normalize_bgr
+    from treedetection_tpu_torch.ops.kernels.roi_align import (
+        roi_pool_patches_flat, roi_pool_patches_flat_reference)
+    from treedetection_tpu_torch.ops.roi_align import flat_pool_inputs
+    c = model.cfg
+    rows = {}
+    with torch.no_grad():
+        x = normalize_bgr(tiles)
+        feats, logits, deltas = model.forward_features(x)
+        props = generate_proposals(
+            logits, deltas, model.anchors(x.device), c.input_size,
+            c.rpn_pre_nms_topk, c.rpn_post_nms_topk, c.rpn_nms_threshold)
+        out = model(x)
+        for name, boxes, r in (
+                ("box/proposals", props.boxes, c.box_pool),
+                ("mask/detections", out.boxes, c.mask_pool),
+                ("mask/proposals", props.boxes[:, :c.max_detections],
+                 c.mask_pool)):
+            p = flat_pool_inputs(feats[:4], boxes, r, FPN_STRIDES[:4])
+            args = (p.kcat, p.rows, p.cols, p.ay, p.ax, r)
+            got = roi_pool_patches_flat(*args)
+            ref = roi_pool_patches_flat_reference(*args)
+            torch.cuda.synchronize()
+            dname = str(got.dtype).split(".")[-1]
+            ok, err, tol = check_close(got, ref, "bfloat16")
+            rows[name] = {"n": int(p.rows.shape[0]), "resolution": r,
+                          "dtype": dname, "max_abs_err": err,
+                          "tolerance": tol, "vs_plain": ulp_errors(got, ref)}
+            if dname != "bfloat16" or not ok \
+                    or not torch.isfinite(got.float()).all():
+                fail(f"bench: K1 at the bench's {name} pool: {rows[name]}")
+        rows["mask/detections"]["valid"] = int(out.valid.sum())
+    return rows
+
+
+def _device_busy_ms(trace: Path):
+    """The union of the kernel, copy and memset intervals of a Chrome
+    trace, in ms, and their count; (None, 0) when it holds none."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and "dur" in e)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return (busy / 1e3 if spans else None), len(spans)
+
+
+def bench_pass_profile(bench, model, tiles, workdir: Path, out_dir):
+    """The bench's pipelined pass on its warmed device thread, the same on
+    a new thread (as the Predictor starts one per call), and the same
+    forwards fetched one after another on this thread; twice each in turns
+    on the host clock, every forward call timed where it runs, then each
+    once under torch.profiler (CUDA activity): the device's busy ms (the
+    union of its kernel and copy intervals) and idle share of the run's
+    wall.  The Chrome traces go to ``out_dir`` when one is given."""
+    forward = bench.make_forward(model)
+    _, batch, iters, _ = bench.bench_setup(on_cpu=False)
+    n = max(iters, 5) + 1            # the forwards in a pipelined window
+    calls: list = []
+
+    def timed(batch_tiles, mark=None):
+        t = time.perf_counter()
+        result = forward(batch_tiles, mark=mark)
+        calls.append((time.perf_counter() - t) * 1e3)
+        return result
+
+    def serial():
+        for _ in range(n):
+            bench.fetch(timed(tiles))
+
+    def new_thread():
+        with bench.device_thread_pool() as fresh:
+            bench.pipelined_pass(timed, tiles, batch, iters, fresh)
+
+    with bench.device_thread_pool() as device_thread:
+        def pipelined():
+            bench.pipelined_pass(timed, tiles, batch, iters, device_thread)
+        modes = {"serial": serial, "pipelined": pipelined,
+                 "pipelined_new_thread": new_thread}
+        serial()                         # warm this thread
+        pipelined()                      # and the device thread
+        runs = {m: [] for m in modes}
+        for mode in list(modes) * 2:
+            _time_mode(mode, modes[mode], calls, runs)
+        profiled = {m: _profile_mode(m, run, calls, workdir, out_dir)
+                    for m, run in modes.items()}
+    return {"host_clock": runs, "profiled": profiled,
+            "note": "a pipelined pass runs max(iters, 5) + 1 forwards in "
+                    "its window and counts max(iters, 5) batches"}
+
+
+def _time_mode(mode, run, calls, runs):
+    """One host-clock run of a mode, appended to ``runs[mode]``."""
+    import torch
+    calls.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    runs[mode].append({"wall_ms": wall, "forwards": len(calls),
+                       "ms_per_forward": wall / len(calls),
+                       "forward_call_ms": [round(v, 2) for v in calls]})
+
+
+def _profile_mode(mode, run, calls, workdir: Path, out_dir):
+    """One run of a mode under torch.profiler -> its wall, the device's
+    busy ms and idle share; its Chrome trace copied to ``out_dir``."""
+    import gzip
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    calls.clear()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    trace = workdir / f"bench_{mode}_trace.json"
+    prof.export_chrome_trace(str(trace))
+    busy, n_spans = _device_busy_ms(trace)
+    if out_dir is not None:      # gzipped: each trace holds ~30 MB of JSON
+        out_dir.mkdir(parents=True, exist_ok=True)
+        with open(trace, "rb") as src, \
+                gzip.open(out_dir / f"{trace.name}.gz", "wb") as dst:
+            shutil.copyfileobj(src, dst)
+    trace.unlink()
+    return {"wall_ms": wall, "forwards": len(calls),
+            "device_busy_ms": busy, "device_intervals": n_spans,
+            "device_busy_ms_per_forward":
+                busy / len(calls) if busy is not None else None,
+            "device_idle_share": 1 - busy / wall if busy is not None
+            else None}
+
+
+def phase_bench(state, workdir: Path, profile_dir=None):
+    """``bench.main`` in this process with ``BENCH_DETAIL=1`` (K1's launches
+    counted from just before to just after), then K1 against its plain
+    version at the bench's shapes and the pipelined pass profiled beside
+    serial forwards, then ``treedetection-torch bench`` with
+    ``TD_BENCH_SKIP_PIPELINE=1``."""
+    import io
+
+    import torch
+    from treedetection_tpu_torch import bench
+    from treedetection_tpu_torch.ops.kernels import roi_align as k1
+    _clear_layout_env()
+    for name in ("TD_PAIRS_DEVICE", "TD_BENCH_SKIP_PIPELINE",
+                 "TD_BENCH_PIPELINE_PASSES"):
+        os.environ.pop(name, None)
+    expected = bench_k1_launches(bench)
+    out, err = io.StringIO(), io.StringIO()
+    os.environ["BENCH_DETAIL"] = "1"
+    _reset_roi_launches(k1)                   # just before the main path
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = bench.main(["--device", "cuda"])
+    finally:
+        del os.environ["BENCH_DETAIL"]
+        sys.stderr.write(err.getvalue())
+        sys.stderr.flush()
+    seconds = time.time() - t0
+    launches = _roi_launches(k1)              # just after
+    if rc != 0:
+        fail(f"bench: exit {rc}")
+    stages = []
+    for ln in err.getvalue().splitlines():
+        if ln.startswith("bench-detail:"):
+            words = ln.split()
+            stages.append({"stage": words[1].lstrip("."),
+                           "cumulative_ms": float(words[2][:-len("ms/batch")]),
+                           "delta_ms": float(ln.split("(+")[1].split("ms")[0])})
+    emit({"phase": "bench_detail", "stages": stages,
+          "timed_by": "CUDA events between the stages of one forward, "
+                      "median of 3 runs"})
+    if [s["stage"] for s in stages] != list(bench.STAGES):
+        fail(f"bench: detail stages {stages}")
+    line = _bench_line("bench", out.getvalue(), bench.MODEL_KEYS
+                       | bench.BAND_KEYS | bench.PIPELINE_KEYS)
+    row = {"phase": "bench", "seconds": seconds, "launches": launches,
+           "k1_expected": expected, "line": line}
+    emit(row)
+    if line["pipeline_tiles"] != BENCH_SHEET_TILES \
+            or line["pipeline_crowns"] <= 0:
+        fail(f"bench: {line['pipeline_tiles']} tiles (expected "
+             f"{BENCH_SHEET_TILES}) and {line['pipeline_crowns']} crowns")
+    if launches != {"k1": expected, "k5": 0, "k6": 0}:
+        fail(f"bench: ROI launches {launches}, the code needs K1 {expected} "
+             f"and no other")
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    cfg, batch, _, _ = bench.bench_setup(on_cpu=False)
+    model = bench.serving_model(cfg, torch.device("cuda", 0))
+    tiles = bench.random_tiles(np.random.default_rng(0), batch,
+                               cfg.input_size).to("cuda")
+    row["k1_at_bench_shapes"] = bench_k1_check(bench, model, tiles)
+    emit({"phase": "bench_k1", "pools": row["k1_at_bench_shapes"]})
+    row["pass_profile"] = bench_pass_profile(bench, model, tiles, workdir,
+                                             profile_dir)
+    emit({"phase": "bench_profile", "seconds": time.time() - t0,
+          **row["pass_profile"]})
+    del model, tiles
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    os.environ["TD_BENCH_SKIP_PIPELINE"] = "1"
+    try:
+        cli_out = _port_cli("bench")
+    finally:
+        del os.environ["TD_BENCH_SKIP_PIPELINE"]
+    cli_line = _bench_line("bench_cli", cli_out,
+                           bench.MODEL_KEYS | bench.BAND_KEYS)
+    emit({"phase": "bench_cli", "seconds": time.time() - t0,
+          "line": cli_line})
+    state["bench"] = row
 
 
 # --- phase 7: training ---------------------------------------------------------
@@ -2981,6 +3229,7 @@ def kernels_line(state):
                     "predictor_split":
                     state["predictor_split"]["launches"]["k1"],
                     "pipeline_two_model": two["launches"]["k1"],
+                    "bench": state["bench"]["launches"]["k1"],
                     "train": state["train"]["k1_launches"],
                     "train_sharded": state["train_sharded"]["k1_launches"]},
                    ""),
@@ -3072,7 +3321,9 @@ def main() -> None:
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", type=Path, default=None, metavar="DIR",
                     help="after the predictor phase, profile one more pass "
-                         "and write its kernel table and trace to DIR")
+                         "and write its kernel table and trace to DIR; the "
+                         "bench phase writes its profiled passes' traces "
+                         "there too")
     ap.add_argument("--multihost-child", type=Path, default=None,
                     metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--train-child", type=Path, default=None,
@@ -3137,6 +3388,8 @@ def main() -> None:
             phase_pipeline_multihost(state, work)
         if "pipeline_two_model" in phases:
             phase_pipeline_two_model(state, work)
+        if "bench" in phases:
+            phase_bench(state, work, args.profile)
         if "train" in phases:
             phase_train(state, work)
         if "train_sharded" in phases:

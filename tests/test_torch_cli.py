@@ -1,7 +1,7 @@
 """The port's ``eval``, ``voronoi`` and ``autolabel`` subcommands print
 what the JAX package's print for the same files (``voronoi`` and
 ``autolabel`` with ``--device cpu``) and fail as they do on inputs that
-do not exist; ``bench`` is not ported and exits with code 2."""
+do not exist; ``bench`` without CUDA exits non-zero and names it."""
 
 import json
 import shutil
@@ -64,9 +64,17 @@ def test_autolabel_prints_what_jax_prints(tmp_path, capsys, jax_native):
     assert got == want and len(json.loads(got)) == 2
 
 
-def test_bench_exits_2_and_missing_inputs_fail_as_jax(tmp_path, capsys):
-    assert tmain(["bench"]) == 2
-    assert "item 12" in capsys.readouterr().err
+def test_bench_exits_2_and_missing_inputs_fail_as_jax(tmp_path, capsys,
+                                                      monkeypatch):
+    """``bench`` without CUDA (and without ``--device cpu``) exits non-zero
+    with the CUDA message and prints no result; the other subcommands fail
+    on missing inputs as the JAX CLI does."""
+    import torch
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        assert tmain(["bench"]) == 2
+    said = capsys.readouterr()
+    assert "CUDA is not available" in said.err and said.out == ""
     gone = str(tmp_path / "gone")
     for argv, port_only in (
             (["eval", gone + ".gpkg", gone + "_gt.gpkg"], []),

@@ -377,8 +377,8 @@ def test_get_predictor_builds_once_under_a_race(monkeypatch):
 def test_cli_runs_the_stages(runs, capsys, monkeypatch, tmp_path):
     """``cli.main`` drives each ported stage from a YAML config (here on the
     finished run, so every stage resumes from its manifest) and prints the
-    stage's outputs; ``bench``, not ported, exits with code 2 and names its
-    roadmap item; the ported ``eval``, ``voronoi`` and ``autolabel`` fail
+    stage's outputs; ``bench`` without CUDA exits with code 2 and names it,
+    printing no result; ``eval``, ``voronoi`` and ``autolabel`` fail
     on inputs that do not exist as the JAX package's CLI does."""
     import logging
     from treedetection_tpu_torch import cli
@@ -403,9 +403,10 @@ def test_cli_runs_the_stages(runs, capsys, monkeypatch, tmp_path):
     assert printed["run"] == printed["postprocess"] == runs["ours"]
     assert [Path(p).name for p in printed["predict"]] == ["324125317.gpkg"]
     assert [Path(p).name for p in printed["preprocess"]] == ["324125317.json"]
-    assert cli.main(["bench", "x"]) == 2
-    assert "ROADMAP.md Queue 1 item 12" in capsys.readouterr().err
-    assert set(cli.UNPORTED) == {"bench"}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main(["bench"]) == 2
+    said = capsys.readouterr()
+    assert "CUDA is not available" in said.err and said.out == ""
     from treedetection_tpu import cli as jax_cli
     gone = str(tmp_path / "missing")
     for argv in (["eval", gone + ".gpkg", gone + "_gt.gpkg"],

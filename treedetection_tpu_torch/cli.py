@@ -9,12 +9,13 @@ Counterpart of the JAX package's ``cli.py``::
     treedetection-torch eval PRED.gpkg GT.gpkg       # score an output layer
     treedetection-torch voronoi NDSM.tif OUT.gpkg    # nDSM autolabels
     treedetection-torch autolabel IMGDIR ANNDIR OUT  # box-prompted autolabel+eval
+    treedetection-torch bench                        # tiles/s of model + pipeline
 
 (or ``python -m treedetection_tpu_torch.cli ...``).  The config's ``device``
 key picks the torch device of the pipeline stages (default ``cuda``);
-``voronoi`` takes ``--device`` (default ``cuda``) for its seed search and
-``autolabel`` for the SAM model of ``--sam-checkpoint``.  ``bench`` is not ported yet: it comes with
-ROADMAP.md Queue 1 item 12 (the H100 bench) and exits with code 2.
+``voronoi`` takes ``--device`` (default ``cuda``) for its seed search,
+``autolabel`` for the SAM model of ``--sam-checkpoint``, and ``bench``
+for the whole bench (``--device cpu``: its small CPU configuration).
 """
 
 from __future__ import annotations
@@ -22,9 +23,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-# subcommand -> the ROADMAP.md Queue 1 item that ports it
-UNPORTED = {"bench": "item 12 (the H100 bench)"}
 
 
 def main(argv=None) -> int:
@@ -68,19 +66,17 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device of the SAM model (default cuda)")
 
-    for name, item in UNPORTED.items():
-        p = sub.add_parser(name, help=f"not ported yet: ROADMAP.md Queue 1 "
-                                      f"{item}")
-        p.add_argument("args", nargs=argparse.REMAINDER)
+    p = sub.add_parser("bench", help="tile throughput of the model and of "
+                                     "process_files (one JSON line)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the bench (default cuda; cpu runs "
+                        "its small CPU configuration)")
 
     args = parser.parse_args(argv)
 
-    if args.command in UNPORTED:
-        print(f"treedetection-torch {args.command}: not ported yet; it comes "
-              f"with ROADMAP.md Queue 1 {UNPORTED[args.command]}. The JAX "
-              f"package's 'treedetection {args.command}' still works.",
-              file=sys.stderr)
-        return 2
+    if args.command == "bench":
+        from treedetection_tpu_torch.bench import main as bench_main
+        return bench_main(["--device", args.device])
 
     if args.command == "eval":
         from treedetection_tpu_torch.eval.validation import evaluate_gpkg_pair

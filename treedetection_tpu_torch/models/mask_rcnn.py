@@ -19,7 +19,7 @@ initialises as Flax does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -35,6 +35,8 @@ from treedetection_tpu_torch.ops.roi_align import (
     PoolFn, multilevel_roi_align_batched)
 
 FPN_STRIDES = (4, 8, 16, 32, 64)
+# the forward's stages, in order, as ``MaskRCNN.forward`` marks their ends
+STAGES = ("rpn", "proposals", "boxpool", "boxhead", "maskhead")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,24 +110,31 @@ class MaskRCNN(nn.Module):
         return self._anchors[device]
 
     def forward(self, images: torch.Tensor,
-                roi_pool: Optional[PoolFn] = None) -> ModelOutput:
+                roi_pool: Optional[PoolFn] = None,
+                mark: Optional[Callable[[str], None]] = None) -> ModelOutput:
         """Both ROIAlign calls pool through the layout that the environment
         selects at the call (``TD_ROI_FLAT``, ``TD_ROI_RESIDENT``; see
         ``ops/roi_align.py``): K1 on the flat buffer by default.  ``roi_pool``
         replaces the flat layout's pooler, e.g. by K1's plain version; it is
-        refused with another layout."""
+        refused with another layout.  ``mark``, if given, is called with the
+        name of each stage of ``STAGES`` once its work is enqueued (the
+        bench records a CUDA event there)."""
         c = self.cfg
         dtype = self.compute_dtype
         b = images.shape[0]
+        mark = mark or (lambda stage: None)
         feats, logits, deltas = self.forward_features(images)
+        mark("rpn")
         props = generate_proposals(
             logits, deltas, self.anchors(images.device), c.input_size,
             c.rpn_pre_nms_topk, c.rpn_post_nms_topk, c.rpn_nms_threshold)
         k = props.boxes.shape[1]
+        mark("proposals")
 
         feats4 = feats[:4]
         pooled, box_inexact = multilevel_roi_align_batched(
             feats4, props.boxes, c.box_pool, FPN_STRIDES[:4], pool=roi_pool)
+        mark("boxpool")
         cls_logits, box_deltas = self.box_head(
             pooled.reshape((b * k,) + pooled.shape[2:]).to(dtype))
         det = box_inference(
@@ -133,6 +142,7 @@ class MaskRCNN(nn.Module):
             props.boxes, props.scores, c.input_size, c.score_threshold,
             c.nms_threshold, c.max_detections)
         d = det.boxes.shape[1]
+        mark("boxhead")
 
         mask_pooled, mask_inexact = multilevel_roi_align_batched(
             feats4, det.boxes, c.mask_pool, FPN_STRIDES[:4], pool=roi_pool)
@@ -140,6 +150,7 @@ class MaskRCNN(nn.Module):
             mask_pooled.reshape((b * d,) + mask_pooled.shape[2:]).to(dtype))
         probs = torch.sigmoid(mask_logits[..., 0])           # (B*D, 28, 28)
         masks = torch.round(probs * 255.0).to(torch.uint8)
+        mark("maskhead")
         masks = masks.reshape((b, d) + masks.shape[1:])
         # degraded-output counters (see ModelOutput)
         det_box_trunc = torch.gather(box_inexact, 1, det.src)
