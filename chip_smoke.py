@@ -5,8 +5,8 @@
 
 Phases (each prints JSON lines; any failure exits non-zero).  ``--phases``
 takes a comma-separated subset of
-build,kernel,predictor,model,pipeline,pipeline_multihost,pipeline_two_model,
-bench,train,train_sharded,eval,autolabel:
+build,kernel,predictor,model,pipeline,pipeline_multihost,warmup,
+pipeline_two_model,bench,train,train_sharded,eval,autolabel:
 
 1. build     — compile the port's native libraries from the sources in the
                checkout (one nvcc per CUDA kernel source, g++ for the host
@@ -64,6 +64,16 @@ bench,train,train_sharded,eval,autolabel:
                environment, gloo between them, the kernels built by phase 1;
                each host prints its stage seconds, launch counts and the
                all-gathered totals, and the crowns must equal phase 5's.
+   warmup    — the run's first-use work (``compile_warmup``): phase 5's
+               sheets in two fresh processes with the kernels built, the
+               warm-up off, then on (stage seconds, each image's first
+               dispatch ``compile_s`` and wall, the warm-up's seconds,
+               every forward on the one device thread, K1 twice per forward
+               with the warm-up's counted, the same crowns from both runs
+               and as phase 5's); then the package copied without its
+               build directory and imported from the copy, over the 16-tile
+               neighbour alone, off then on (a cold build: the first
+               image's ``compile_s`` and the predict stage's seconds).
 6. pipeline_two_model — ``process_files`` in its two-model configuration
                (``urban_model``, ``forrest_model``, a forest outline over the
                west half of the sheet) with ``TD_ROI_FLAT=0`` on the same
@@ -159,8 +169,8 @@ H100_BYTES_PER_S = 3.35e12          # HBM3, SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,     # CUDA cores, no tensor cores
               "bfloat16": 989e12}   # dense tensor cores
 PHASES = ("build", "kernel", "predictor", "model", "pipeline",
-          "pipeline_multihost", "pipeline_two_model", "bench", "train",
-          "train_sharded", "eval", "autolabel")
+          "pipeline_multihost", "warmup", "pipeline_two_model", "bench",
+          "train", "train_sharded", "eval", "autolabel")
 ROI_LIBRARIES = ("roi_pool_flat", "roi_pool_levels", "roi_pool_resident")
 K6_CHUNKS = (1, 2, 4, 8, 16, 32)   # boxes per block timed in the kernel phase
 PAIRWISE_BLOCK_ROWS, PAIRWISE_COLS = 8192, 32768   # one production row block
@@ -1516,11 +1526,14 @@ def phase_pipeline(state, workdir: Path):
                 fail(f"pipeline: properties {sorted(prop)} in {p}")
         written[Path(p).name] = len(rows)
     pred = config.get("_predictor_cache", {}).get(str(NPZ))
+    warmups = len(pred._warm_pads) if pred else 0
     row = {"phase": "pipeline", "config": "R50-FPN, 1024^2, batch 10, 512 "
            "proposals, bf16, TD_PAIRS_DEVICE=1",
            "sheet_px": [SHEET_PX, NEIGHBOUR_PX], "seam_strips": strips,
            "tiles_planned": tiles_planned, "tiles_predicted": tiles_predicted,
-           "batches": batches, "crowns_stitched": stitched,
+           "batches": batches, "warmup_forwards": warmups,
+           "warmup_s": dict(pred._warm_pads) if pred else None,
+           "crowns_stitched": stitched,
            "crowns_written": written, "wall_s": wall, "data_s": data_s,
            "tiles_per_s": sum(tiles_predicted.values()) / stages["predict"],
            "stage_s": stages, "postprocess_phase_s": pp_stats,
@@ -1541,12 +1554,18 @@ def phase_pipeline(state, workdir: Path):
         fail(f"pipeline: no crowns written for the sheet: {written}")
     if pred is None or pred.used_random_init:
         fail("pipeline: the Predictor was not built from the checkpoint")
-    if launches["k1"] != 2 * batches or launches["k5"] or launches["k6"]:
-        fail(f"pipeline: ROI launches {launches} for {batches} batches in "
-             f"the default layout (expected K1 twice per batch, no other)")
+    if warmups != 1:
+        fail(f"pipeline: {warmups} compile warm-ups (compile_warmup is on "
+             f"by default: expected one, at the sheet's pad)")
+    if launches["k1"] != 2 * (batches + warmups) or launches["k5"] \
+            or launches["k6"]:
+        fail(f"pipeline: ROI launches {launches} for {batches} batches and "
+             f"{warmups} warm-up forward in the default layout (expected K1 "
+             f"twice per forward, no other)")
     _check_pair_launches("pipeline", launches, pair_calls)
     state["pipeline"] = row
     state["pipeline_inputs"] = root
+    state["pipeline_sheets"] = (big, small)
     state["pipeline_crowns"] = crowns
 
     # (1) the host-grid branch on the same stitched layers
@@ -1658,6 +1677,8 @@ def multihost_child(root: Path) -> None:
     wall = time.time() - t0
     launches = {**_roi_launches(k1), **k234.launches}     # just after
     emit({"phase": "pipeline_multihost_host", "rank": mesh.process_index(),
+          "warmup_forwards": sum(len(p._warm_pads) for p in config.get(
+              "_predictor_cache", {}).values()),
           "processes": mesh.process_count(),
           "manifest_suffix": recoveries._shard_suffix(), "wall_s": wall,
           "stage_s": dict(detection.LAST_STAGE_SECONDS),
@@ -1777,11 +1798,16 @@ def phase_pipeline_multihost(state, workdir: Path):
         fail(f"pipeline_multihost: all-gathered totals {totals}, expected "
              f"the hosts' output counts and {n_crowns} crowns")
     batches = state["pipeline"]["batches"]
-    if launches["k1"] != 2 * batches or any(r["launches"]["k1"] == 0
-                                            for r in rows):
+    warmups = [r["warmup_forwards"] for r in rows]
+    if warmups != [1] * MULTIHOST_HOSTS:
+        fail(f"pipeline_multihost: warm-up forwards by host {warmups} "
+             f"(expected one on every host: each starts its own)")
+    if launches["k1"] != 2 * (batches + sum(warmups)) or any(
+            r["launches"]["k1"] == 0 for r in rows):
         fail(f"pipeline_multihost: K1 launches "
-             f"{[r['launches'] for r in rows]} for {batches} batches "
-             f"(expected twice per batch in all, and some on every host)")
+             f"{[r['launches'] for r in rows]} for {batches} batches and "
+             f"{sum(warmups)} warm-up forwards (expected twice per forward "
+             f"in all, and some on every host)")
     # K2/K3 and relation_pairs once per row block of the crowns each host
     # filtered (a host whose layers hold no crown launches none)
     for row in rows:
@@ -1797,6 +1823,197 @@ def phase_pipeline_multihost(state, workdir: Path):
     _check_pair_launches("pipeline_multihost", launches,
                          [c for row in rows for c in row["pair_kernel_calls"]])
     state["multihost"] = summary
+
+
+# --- phase 5c: the run's first-use work ---------------------------------------
+
+WARMUP_CHILD_TIMEOUT_S = 300
+WARMUP_MODES = ("off", "on")     # compile_warmup false, then true
+
+
+def warmup_child(root: Path, mode: str) -> None:
+    """One ``process_files`` run of the ``warmup`` phase (``chip_smoke.py
+    --warmup-child ROOT on|off``) on ROOT with ``compile_warmup`` on or off,
+    then one JSON line: the package it imported and whether its build
+    directory was missing at the start, the stage seconds, each image's
+    first dispatch (``compile_s``) and wall, the warm-up's seconds, the
+    thread of every forward and K1's launches."""
+    import torch
+    import treedetection_tpu_torch
+    from treedetection_tpu_torch import build, detection, prediction
+    from treedetection_tpu_torch.config import prepare_config
+    from treedetection_tpu_torch.ops.kernels import roi_align as k1
+    cold = not build.BUILD_DIR.exists()
+    images, threads = [], []
+    predict_image = prediction.Predictor._predict_image
+    forward_chunk = prediction.Predictor._forward_chunk
+
+    def recorded_image(self, src, items, tifpath, output_dir):
+        n = predict_image(self, src, items, tifpath, output_dir)
+        stats = prediction.LAST_RUN_STATS
+        images.append({"image": Path(tifpath).stem,
+                       "tiles": int(stats["tiles"]),
+                       "batches": int(stats["batches"]),
+                       "compile_s": stats["compile_s"],
+                       "wall_s": stats["wall_s"]})
+        return n
+
+    def recorded_chunk(self, *args):
+        threads.append(threading.current_thread().name)
+        return forward_chunk(self, *args)
+
+    prediction.Predictor._predict_image = recorded_image
+    prediction.Predictor._forward_chunk = recorded_chunk
+    raw = dict(pipeline_config(root), compile_warmup=mode == "on")
+    config, _ = prepare_config(raw, str(root))
+    _reset_roi_launches(k1)                   # just before the main path
+    t0 = time.time()
+    outputs = detection.process_files(config)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _roi_launches(k1)              # just after
+    pred = config["_predictor_cache"][str(NPZ)]
+    emit({"phase": "warmup_run", "compile_warmup": mode == "on",
+          "package": str(Path(treedetection_tpu_torch.__file__).parent),
+          "build_dir_missing_at_start": cold, "wall_s": wall,
+          "stage_s": dict(detection.LAST_STAGE_SECONDS), "images": images,
+          "warmup_s": {str(k): v for k, v in pred._warm_pads.items()},
+          "forwards": len(threads), "forward_threads": sorted(set(threads)),
+          "launches": launches,
+          "outputs": sorted(Path(p).name for p in outputs)})
+
+
+def _warmup_run(root: Path, mode: str, package_dir=None):
+    """``warmup_child`` in a fresh process -> its line.  With
+    ``package_dir`` the child imports the package from there (first on
+    PYTHONPATH, and ``-P`` keeps this script's directory off the path)."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TREEDETECTION_", "TD_", "LOCAL_"))
+           and k not in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT")}
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--warmup-child",
+           str(root), mode]
+    if package_dir is not None:
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(package_dir)] + [p for p in env.get("PYTHONPATH", "").split(
+                os.pathsep) if p])
+        cmd.insert(1, "-P")
+    log = root / f"warmup_{mode}.log"
+    try:
+        with open(log, "w") as fh:
+            rc = subprocess.run(cmd, env=env, stdout=fh,
+                                stderr=subprocess.STDOUT,
+                                timeout=WARMUP_CHILD_TIMEOUT_S).returncode
+    except subprocess.TimeoutExpired:
+        rc = "timeout"
+    text = log.read_text()
+    line = next((ln for ln in reversed(text.splitlines())
+                 if ln.startswith('{"phase": "warmup_run"')), None)
+    if rc != 0 or line is None:
+        fail(f"warmup: the {mode} run failed ({rc}): {text[-4000:]}")
+    return json.loads(line)
+
+
+def _sheets_copy(src: Path, root: Path, names) -> None:
+    for sub in ("rgb", "nDSM"):
+        (root / sub).mkdir(parents=True)
+        for name in names:
+            os.link(src / sub / f"{name}.tif", root / sub / f"{name}.tif")
+
+
+def _check_warmup_run(part: str, row, one_device_thread=True) -> None:
+    batches = sum(im["batches"] for im in row["images"])
+    warmups = len(row["warmup_s"])
+    if warmups != (1 if row["compile_warmup"] else 0):
+        fail(f"warmup {part}: {warmups} warm-ups with compile_warmup "
+             f"{row['compile_warmup']}")
+    if row["forwards"] != batches + warmups or \
+            row["launches"] != {"k1": 2 * (batches + warmups), "k5": 0,
+                                "k6": 0}:
+        fail(f"warmup {part}: {row['forwards']} forwards and ROI launches "
+             f"{row['launches']} for {batches} batches and {warmups} "
+             f"warm-up forwards (expected K1 twice per forward, no other)")
+    if one_device_thread and len(row["forward_threads"]) != 1:
+        fail(f"warmup {part}: forwards ran on {row['forward_threads']} "
+             f"(expected the one device thread for the whole pass)")
+
+
+def phase_warmup(state, workdir: Path):
+    """The run's first-use work.  (1) ``process_files`` over the pipeline
+    phase's sheet and neighbour (and the seam strip the tiler cuts) in two
+    fresh processes with the kernels already built, ``compile_warmup``
+    off, then on: stage seconds, each image's ``compile_s`` and wall, the
+    warm-up's seconds, every forward on one device thread (the warm-up's
+    included), K1's launches, and the same crowns from both runs (and as
+    the pipeline phase's).  (2) A cold build: the package copied without
+    its build directory, imported from the copy, over the 16-tile
+    neighbour alone, off then on, each from a fresh copy: the first
+    image's ``compile_s`` and the predict stage's seconds."""
+    import shutil
+    src = state["pipeline_inputs"]
+    big, small = state["pipeline_sheets"]
+    rows = {}
+    t0 = time.time()
+    for mode in WARMUP_MODES:
+        root = workdir / f"warmup_{mode}"
+        _sheets_copy(src, root, (big, small))
+        rows[mode] = _warmup_run(root, mode)
+        emit(dict(rows[mode], phase=f"warmup_{mode}"))
+        _check_warmup_run(mode, rows[mode])
+    crowns = {mode: {name: _crown_multiset(
+        workdir / f"warmup_{mode}" / "out" / name)[0]
+        for name in rows[mode]["outputs"]} for mode in WARMUP_MODES}
+    same = {name: rows_ == crowns["on"].get(name)
+            for name, rows_ in crowns["off"].items()}
+    same_as_pipeline = {name: rows_ == state["pipeline_crowns"].get(name)
+                        for name, rows_ in crowns["on"].items()}
+    warm_s = time.time() - t0
+
+    cold = {}
+    t0 = time.time()
+    for mode in WARMUP_MODES:
+        root = workdir / f"warmup_cold_{mode}"
+        package = workdir / f"package_{mode}"
+        shutil.copytree(REPO / "treedetection_tpu_torch",
+                        package / "treedetection_tpu_torch",
+                        ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        _sheets_copy(src, root, (small,))
+        row = _warmup_run(root, mode, package_dir=package)
+        emit(dict(row, phase=f"warmup_cold_{mode}"))
+        if not row["build_dir_missing_at_start"] or \
+                row["package"] != str(package / "treedetection_tpu_torch"):
+            fail(f"warmup: the cold {mode} run imported {row['package']} "
+                 f"(build directory missing at its start: "
+                 f"{row['build_dir_missing_at_start']}), not the copy")
+        _check_warmup_run(f"cold {mode}", row)
+        cold[mode] = row
+    cold_s = time.time() - t0
+
+    summary = {
+        "phase": "warmup", "seconds": warm_s + cold_s,
+        "warm_build": {mode: {
+            "stage_s": rows[mode]["stage_s"],
+            "compile_s": {im["image"]: im["compile_s"]
+                          for im in rows[mode]["images"]},
+            "image_wall_s": {im["image"]: im["wall_s"]
+                             for im in rows[mode]["images"]},
+            "warmup_s": rows[mode]["warmup_s"],
+            "forward_threads": rows[mode]["forward_threads"]}
+            for mode in WARMUP_MODES},
+        "cold_build": {mode: {
+            "first_compile_s": cold[mode]["images"][0]["compile_s"],
+            "predict_s": cold[mode]["stage_s"]["predict"],
+            "preprocess_s": cold[mode]["stage_s"]["preprocess"],
+            "warmup_s": cold[mode]["warmup_s"]} for mode in WARMUP_MODES},
+        "same_crowns": same, "same_crowns_as_pipeline": same_as_pipeline,
+        "tolerance": "equal crown multisets (rounded rings and properties) "
+                     "per processed layer"}
+    emit(summary)
+    if sorted(same) != sorted(state["pipeline_crowns"]) or \
+            not all(same.values()) or not all(same_as_pipeline.values()):
+        fail(f"warmup: the runs with the warm-up off and on, or the "
+             f"pipeline phase, wrote other crowns: {same}, "
+             f"{same_as_pipeline}")
+    state["warmup"] = summary
 
 
 # --- phase 6: the two-model configuration, and the resident layout ----------
@@ -1893,8 +2110,10 @@ def phase_pipeline_two_model(state, workdir: Path):
     xs = np.array([np.asarray(g[0][0])[:, 0].mean() for g in geoms])
     written = {Path(p).name: len(read_gpkg(str(p))[0]) for p in outputs}
     cache = config.get("_predictor_cache", {})
+    warmups = {Path(k).stem: len(p._warm_pads) for k, p in cache.items()}
     row = {"phase": "pipeline_two_model", "config": "R50-FPN, 1024^2, batch "
            "10, 512 proposals, bf16, urban + forest model, TD_ROI_FLAT=0",
+           "warmup_forwards": warmups,
            "sheet_px": SHEET_PX, "tiles_planned": len(plan),
            "tiles_only_forest": len(only_forest),
            "tiles_only_urban": len(only_urban), "passes": passes,
@@ -1918,10 +2137,13 @@ def phase_pipeline_two_model(state, workdir: Path):
             any(p.used_random_init for p in cache.values()):
         fail("pipeline_two_model: expected two Predictors built from the "
              "checkpoint copies")
-    if launches != {"k1": 0, "k5": 2 * batches, "k6": 0}:
+    if warmups != {"urban": 1, "forest": 0}:
+        fail(f"pipeline_two_model: warm-up forwards {warmups} (expected one, "
+             f"of the urban model, which predicts first)")
+    if launches != {"k1": 0, "k5": 2 * (batches + 1), "k6": 0}:
         fail(f"pipeline_two_model: ROI launches {launches} for {batches} "
-             f"batches under TD_ROI_FLAT=0 (expected K5 twice per batch and "
-             f"no other)")
+             f"batches and the urban warm-up's forward under TD_ROI_FLAT=0 "
+             f"(expected K5 twice per forward and no other)")
     if not row["crowns_fused_west"] or not row["crowns_fused_east"]:
         fail("pipeline_two_model: the fused layer lacks crowns on one side "
              "of the outline")
@@ -1993,7 +2215,8 @@ BENCH_PIPELINE_PASSES = 2
 # every rate of the bench's line, and the other numbers that must be > 0
 BENCH_RATES = ("value", "pipelined_tiles_per_sec_min",
                "pipelined_tiles_per_sec_max", "serial_tiles_per_sec",
-               "pipeline_tiles_per_sec", "pipeline_first_tiles_per_sec")
+               "pipeline_tiles_per_sec", "pipeline_tiles_per_sec_excl_compile",
+               "pipeline_first_tiles_per_sec")
 BENCH_POSITIVE = ("vs_baseline", "p50_per_tile_ms", "pipeline_wall_s",
                   "pipeline_first_wall_s", "pipelined_between_run_n")
 
@@ -2005,13 +2228,17 @@ def bench_k1_launches(bench) -> int:
     compute-only runs, the stream, the device thread's warm forward, and
     each pipelined pass one batch ahead of its ``max(iters, 5)``), and each
     pipeline pass's batches of the example configuration over the sheet's
-    tiles."""
+    tiles plus its compile warm-up's forward (``compile_warmup`` is on in
+    the example configuration, and each pass starts in a fresh
+    workspace)."""
     from treedetection_tpu_torch.config import load_config
     _, _, iters, passes = bench.bench_setup(on_cpu=False)
     forwards = (bench.DETAIL_RUNS + 1) + 1 + bench.COMPUTE_RUNS + iters \
         + 1 + passes * (max(iters, 5) + 1)
-    batches = BENCH_PIPELINE_PASSES * math.ceil(
-        BENCH_SHEET_TILES / load_config(str(bench.EXAMPLE))["batch_size"])
+    example = load_config(str(bench.EXAMPLE))
+    warmups = 1 if example.get("compile_warmup", True) else 0
+    batches = BENCH_PIPELINE_PASSES * (warmups + math.ceil(
+        BENCH_SHEET_TILES / example["batch_size"]))
     return 2 * (forwards + batches)
 
 
@@ -3328,6 +3555,8 @@ def main() -> None:
                     metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--train-child", type=Path, default=None,
                     metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--warmup-child", nargs=2, default=None,
+                    metavar=("ROOT", "MODE"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = args.phases.split(",")
     if set(phases) - set(PHASES):
@@ -3338,6 +3567,9 @@ def main() -> None:
     if "pipeline_multihost" in phases and "pipeline" not in phases:
         fail("the pipeline_multihost phase reruns the pipeline phase's "
              "sheets: name both")
+    if "warmup" in phases and "pipeline" not in phases:
+        fail("the warmup phase reruns the pipeline phase's sheets: name "
+             "both")
     if "train" in phases and "predictor" not in phases:
         fail("the train phase serves on the predictor phase's raster: name "
              "both")
@@ -3352,7 +3584,8 @@ def main() -> None:
              "both")
     if not (REPO / "treedetection_tpu_torch" / "__init__.py").is_file():
         fail("the treedetection_tpu_torch package is not beside this script")
-    sys.path.insert(0, str(REPO))
+    if args.warmup_child is None:   # a cold warm-up child imports a copy
+        sys.path.insert(0, str(REPO))
     import torch
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -3365,6 +3598,9 @@ def main() -> None:
         return
     if args.train_child is not None:
         train_child(args.train_child)
+        return
+    if args.warmup_child is not None:
+        warmup_child(Path(args.warmup_child[0]), args.warmup_child[1])
         return
     t_start = time.time()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3386,6 +3622,8 @@ def main() -> None:
             phase_pipeline(state, work)
         if "pipeline_multihost" in phases:
             phase_pipeline_multihost(state, work)
+        if "warmup" in phases:
+            phase_warmup(state, work)
         if "pipeline_two_model" in phases:
             phase_pipeline_two_model(state, work)
         if "bench" in phases:

@@ -31,15 +31,13 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from test_torch_jax_native import jax_native  # noqa: E402,F401 (fixture)
-from treedetection_tpu_torch import bench  # noqa: E402
+from treedetection_tpu_torch import bench, prediction  # noqa: E402
 from treedetection_tpu_torch.models.convert import from_flax_params  # noqa: E402
 from treedetection_tpu_torch.models.mask_rcnn import MaskRCNN  # noqa: E402
 from treedetection_tpu_torch.vector import read_gpkg  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
-OMITTED = {"tunnel_e2e_tiles_per_sec", "pipeline_compile_s",
-           "pipeline_tiles_per_sec_excl_compile", "pipeline_first_compile_s",
-           "pipeline_error"}
+OMITTED = {"tunnel_e2e_tiles_per_sec", "pipeline_error"}
 SIZE = 128            # the CPU configuration at a smaller input
 SMALL_SHEET_PX = 500  # 100 m at 0.2 m: 4 tiles of 50 m
 SMALL_PIPELINE = {"model_input_size": 128, "batch_size": 4}
@@ -151,6 +149,10 @@ def test_one_pipeline_pass_counts_what_it_wrote(tmp_path):
     assert got["pipeline_tiles"] == tiles == 16
     assert got["pipeline_crowns"] == len(read_gpkg(processed[0])[0]) > 0
     assert got["pipeline_wall_s"] > 0
+    assert got["pipeline_compile_s"] == round(
+        prediction.LAST_RUN_STATS["compile_s"], 1)
+    assert got["pipeline_tiles_per_sec_excl_compile"] >= \
+        got["pipeline_tiles_per_sec"] > 0
     assert isinstance(got["postprocess_phase_s"], dict)
 
 

@@ -24,10 +24,14 @@ torchrun (``torch.distributed`` over gloo, initialised by
 host tiles its slice (``parallel.partition_files``) plus the strips whose
 primary raster it owns, predicts its slice, and postprocesses the stitched
 layers of its slice (host 0 also the layers no host's image names), with
-barriers between the stages and the totals all-gathered at the end.  Left
-out by decision: the compile warm-up thread and the device gate of the JAX
-package (CUDA streams order the work of the predict thread and of the
-postprocess worker).
+barriers between the stages and the totals all-gathered at the end.
+
+The run's first-use work (kernel and native builds, the device thread's
+library set-up) overlaps preprocessing: ``compile_warmup`` (default true)
+starts ``prediction.start_compile_warmup`` before the tiler, and the run
+joins it after the predict stage.  Left out by decision: the device gate of
+the JAX package (CUDA streams order the work of the predict thread and of
+the postprocess worker).
 """
 
 from __future__ import annotations
@@ -396,6 +400,10 @@ def process_files(config: Dict[str, Any]) -> List[str]:
     LAST_BARRIER_SECONDS.clear()
     LAST_MULTIHOST_TOTALS.clear()
     t0 = time.time()
+    # overlap the first use's builds and device set-up with tiling/merging
+    # (nvcc and g++ are subprocesses; the forward releases the GIL)
+    from treedetection_tpu_torch.prediction import start_compile_warmup
+    start_compile_warmup(config)
     preprocess_files(config)
     # a host's predict stage may take images that another host tiled (and
     # seam strips another host wrote): all preprocessing must be on shared
@@ -415,6 +423,10 @@ def process_files(config: Dict[str, Any]) -> List[str]:
         _predict_postprocess_overlapped(config)
     else:
         predict_tiles(config)
+    # bounded: a hung warm-up must not hang the run
+    wt = config.get("_warmup_thread")
+    if wt is not None:
+        wt.join(timeout=900)
     _multihost_barrier("predict_done", logger)
     t2 = time.time()
     outputs = postprocess_files(config)

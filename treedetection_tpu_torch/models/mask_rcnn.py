@@ -62,6 +62,11 @@ class MaskRCNNConfig:
     # "batch" (from-scratch training; fold_batch_stats before serving)
     norm: str = "frozen"
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype that ``bf16`` selects."""
+        return torch.bfloat16 if self.bf16 else torch.float32
+
 
 class ModelOutput(NamedTuple):
     boxes: torch.Tensor         # (B, D, 4) in input-pixel coords

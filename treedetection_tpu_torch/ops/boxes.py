@@ -100,3 +100,13 @@ def clip_boxes(boxes: torch.Tensor, height: float, width: float) -> torch.Tensor
         torch.clamp(boxes[..., 2], 0, width),
         torch.clamp(boxes[..., 3], 0, height),
     ], dim=-1)
+
+
+def transform_pixel_to_geo(coords: torch.Tensor,
+                           affine: torch.Tensor) -> torch.Tensor:
+    """Batch pixel -> geo transform on the tensor's device: ``coords``
+    (..., 2) as (col, row), ``affine`` the 6-vector (a, b, c, d, e, f)."""
+    a, b, c, d, e, f = (affine[i] for i in range(6))
+    x = a * coords[..., 0] + b * coords[..., 1] + c
+    y = d * coords[..., 0] + e * coords[..., 1] + f
+    return torch.stack([x, y], dim=-1)

@@ -567,6 +567,28 @@ def _launch_resident_kernel(p: LevelPoolInputs, resolution: int,
     return out
 
 
+def pooler_layout() -> str:
+    """The buffer layout that ``TD_ROI_FLAT`` and ``TD_ROI_RESIDENT`` select
+    now: ``"flat"`` (K1), ``"levels"`` (K5) or ``"resident"`` (K6)."""
+    if os.environ.get("TD_ROI_RESIDENT", "0") == "1":
+        return "resident"
+    return "flat" if os.environ.get("TD_ROI_FLAT", "1") == "1" else "levels"
+
+
+def pooler_libraries() -> Tuple[str, ...]:
+    """The kernel libraries (``ops.kernels.roi_align.build`` names) that
+    ``multilevel_roi_align_batched`` launches on the card under the layout
+    the environment selects now: the resident layout pools a small patch
+    class, where ``TD_ROI_SMALL`` turns one on, through K5."""
+    layout = pooler_layout()
+    if layout == "flat":
+        return ("roi_pool_flat",)
+    if layout == "levels" or not any(     # the box and the mask pool
+            _class_params(1, r)[0] for r in (7, 14)):
+        return (f"roi_pool_{layout}",)
+    return ("roi_pool_resident", "roi_pool_levels")
+
+
 def multilevel_roi_align_batched(fmaps: Sequence[torch.Tensor],
                                  boxes: torch.Tensor, resolution: int,
                                  strides: Sequence[int],
@@ -596,9 +618,9 @@ def multilevel_roi_align_batched(fmaps: Sequence[torch.Tensor],
     b, n = boxes.shape[0], boxes.shape[1]
     c = fmaps[0].shape[-1]
     dev = boxes.device
-    use_flat = os.environ.get("TD_ROI_FLAT", "1") == "1"
-    use_resident = os.environ.get("TD_ROI_RESIDENT", "0") == "1"
-    flat_layout = use_flat and not use_resident
+    layout = pooler_layout()
+    use_resident = layout == "resident"
+    flat_layout = layout == "flat"
     if pool is not None and not flat_layout:
         raise ValueError("'pool' replaces the flat layout's pooler; it cannot "
                          "be given with TD_ROI_FLAT=0 or TD_ROI_RESIDENT=1")

@@ -4,7 +4,11 @@ runs (counterpart of ``treedetection_tpu/parallel/mesh.py``).
 The JAX package builds a 1-D ``Mesh`` and lets XLA place the shards.  Here a
 mesh is the list of ``torch.device``s a Predictor splits its batches over,
 and :func:`sharded_forward` places the work: equal chunks in tile order, one
-model replica and one CUDA stream per device.
+model replica, one CUDA stream and one long-lived thread per device entry
+(:func:`device_executor`).  A thread's first forward on a card sets up its
+own cuDNN and cuBLAS state (~100 ms on an H100), so each entry keeps one
+thread for the life of the process, shared by every Predictor, image and
+warm-up that runs on it.
 
 Host identity comes from ``TREEDETECTION_NUM_HOSTS`` /
 ``TREEDETECTION_HOST_ID`` first (the stage-by-stage simulation, and
@@ -17,6 +21,7 @@ from __future__ import annotations
 import copy
 import datetime
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -142,6 +147,61 @@ def _recorded_event(device: torch.device) -> Optional[torch.cuda.Event]:
     return event
 
 
+# (device, slot) -> its single-worker executor, and the splitters of device
+# lists; created at first use, kept for the life of the process
+_executors: Dict[Any, ThreadPoolExecutor] = {}
+_executors_lock = threading.Lock()
+_thread_key = threading.local()
+# a forked child inherits the dict but not the threads behind it
+os.register_at_fork(after_in_child=_executors.clear)
+
+
+def _mark_thread(key) -> None:
+    _thread_key.value = key
+
+
+def _executor(key, name: str, device: bool) -> ThreadPoolExecutor:
+    """The single-worker executor of ``key``; a device thread knows its key
+    (``_thread_key``), a splitter does not."""
+    with _executors_lock:
+        ex = _executors.get(key)
+        if ex is None:
+            ex = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix=name,
+                initializer=_mark_thread, initargs=(key if device else None,))
+            _executors[key] = ex
+        return ex
+
+
+def _slots(devices: Sequence) -> List[Tuple[str, int]]:
+    """Each entry's key: its device and how many entries before it name the
+    same device (a device listed twice holds two replicas)."""
+    keys: List[Tuple[str, int]] = []
+    for d in devices:
+        name = str(torch.device(d))
+        keys.append((name, sum(k[0] == name for k in keys)))
+    return keys
+
+
+def device_executor(device, slot: int = 0) -> ThreadPoolExecutor:
+    """The one thread of a device entry: a single-worker executor that
+    lives as long as the process.  ``slot`` tells apart the entries of a
+    device list that name the same device."""
+    key = (str(torch.device(device)), slot)
+    return _executor(key, f"td-device-{key[0]}-{slot}", device=True)
+
+
+def dispatch_executor(devices: Sequence) -> ThreadPoolExecutor:
+    """Where whole-batch forwards over ``devices`` are submitted: with one
+    entry its device thread, where :func:`sharded_forward` runs the chunk
+    directly; with several a splitter thread of that device list, which is
+    none of the device threads, because it waits on them."""
+    keys = _slots(devices)
+    if len(keys) == 1:
+        return device_executor(*keys[0])
+    return _executor(("split",) + tuple(keys), "td-split", device=False)
+
+
 def sharded_forward(fn: Callable[..., Any],
                     replicas: Sequence[torch.nn.Module],
                     devices: Sequence[torch.device]
@@ -149,19 +209,27 @@ def sharded_forward(fn: Callable[..., Any],
     """-> ``forward(batch, *args)``: ``fn(replica, device, chunk, *args)``
     for each device's equal chunk of the batch, and ``[(result, event)]`` in
     tile order, ``event`` recorded after fn's work on its stream (None on
-    the CPU).  With one device fn runs on the caller's thread and current
-    stream.  With more, each runs from a thread of its own, on CUDA on the
+    the CPU).  Each chunk runs on its entry's thread
+    (:func:`device_executor`): directly when the caller is that thread,
+    else submitted to it while the caller waits.  With one device fn runs
+    on the thread's current stream; with more, on CUDA each on the
     device's own stream, so that the host work inside one chunk's forward
-    (its syncs) overlaps the others'."""
+    (its syncs) overlaps the others'.  A forward over several devices
+    raises when called from a device thread, which would wait on itself or
+    on a thread that waits on it."""
+    keys = _slots(devices)
+    executors = [device_executor(*k) for k in keys]
     if len(devices) == 1:
         def forward_one(batch, *args):
-            out = fn(replicas[0], devices[0], batch, *args)
-            return [(out, _recorded_event(devices[0]))]
+            def run():
+                out = fn(replicas[0], devices[0], batch, *args)
+                return [(out, _recorded_event(devices[0]))]
+            if getattr(_thread_key, "value", None) == keys[0]:
+                return run()
+            return executors[0].submit(run).result()
         return forward_one
     streams = [torch.cuda.Stream(device=d) if d.type == "cuda" else None
                for d in devices]
-    pool = ThreadPoolExecutor(max_workers=len(devices),
-                              thread_name_prefix="td-shard")
 
     def run(i, chunk, args):
         if streams[i] is None:
@@ -171,7 +239,12 @@ def sharded_forward(fn: Callable[..., Any],
             return out, _recorded_event(devices[i])
 
     def forward(batch, *args):
-        futures = [pool.submit(run, i, chunk, args) for i, chunk in
-                   enumerate(shard_batch(batch, len(devices)))]
+        if getattr(_thread_key, "value", None) is not None:
+            raise RuntimeError(
+                f"a forward over {len(devices)} devices was called from the "
+                f"device thread {threading.current_thread().name}; submit it "
+                f"to dispatch_executor(devices)")
+        futures = [ex.submit(run, i, chunk, args) for i, (ex, chunk) in
+                   enumerate(zip(executors, shard_batch(batch, len(devices))))]
         return [f.result() for f in futures]
     return forward
