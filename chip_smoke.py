@@ -6,7 +6,7 @@
 Phases (each prints JSON lines; any failure exits non-zero).  ``--phases``
 takes a comma-separated subset of
 build,kernel,predictor,model,pipeline,pipeline_multihost,warmup,
-pipeline_two_model,bench,train,train_sharded,eval,autolabel:
+pipeline_two_model,bench,train,train_sharded,eval,autolabel,trace:
 
 1. build     — compile the port's native libraries from the sources in the
                checkout (one nvcc per CUDA kernel source, g++ for the host
@@ -139,7 +139,16 @@ pipeline_two_model,bench,train,train_sharded,eval,autolabel:
                debug raster against float64 numpy; mask pasting and
                class-aware NMS card against CPU; the voronoi and autolabel
                subcommands against the calls.
-10. kernels  — the per-kernel summary line, then the card's name and power
+10. trace    — ``tools/trace_check.py --parts syncs,off`` under the three
+               pooler layouts, in a child process: every sync that a served
+               R101 batch of the benchmark's ``r101_tile_stream`` cell makes
+               on the device thread lies in a ``sync.<site>`` span and the
+               batch record counts each; tracing off enters no
+               ``record_function``, makes no CUDA event beyond the arrival
+               events, no sync that tracing on does not count, and records
+               nothing.  The benchmark's ``syncs_per_batch`` and
+               ``sync_wait_ms`` read those spans.
+11. kernels  — the per-kernel summary line, then the card's name and power
                limit, then the final status line.
 
 Imports nothing of JAX.  Exits non-zero without a result when CUDA is not
@@ -170,7 +179,7 @@ PEAK_FLOPS = {"float32": 67e12,     # CUDA cores, no tensor cores
               "bfloat16": 989e12}   # dense tensor cores
 PHASES = ("build", "kernel", "predictor", "model", "pipeline",
           "pipeline_multihost", "warmup", "pipeline_two_model", "bench",
-          "train", "train_sharded", "eval", "autolabel")
+          "train", "train_sharded", "eval", "autolabel", "trace")
 ROI_LIBRARIES = ("roi_pool_flat", "roi_pool_levels", "roi_pool_resident")
 K6_CHUNKS = (1, 2, 4, 8, 16, 32)   # boxes per block timed in the kernel phase
 PAIRWISE_BLOCK_ROWS, PAIRWISE_COLS = 8192, 32768   # one production row block
@@ -3247,6 +3256,33 @@ def _seeds_ms(find_crown_seeds, height):
     return statistics.median(times)
 
 
+def phase_trace(state):
+    """``tools/trace_check.py`` over the three pooler layouts in a child
+    process (it switches the sync debug mode and wraps the profiler's
+    classes): each of its lines without the per-site detail, and a failure
+    on its verdict."""
+    cmd = [sys.executable, str(REPO / "tools" / "trace_check.py"),
+           "--parts", "syncs,off", "--layouts", "flat,levels,resident"]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=900)
+    verdict = None
+    for text in proc.stdout.splitlines():
+        if not text.startswith("{"):
+            continue
+        line = json.loads(text)
+        if line.get("part") == "verdict":
+            verdict = line
+        line.pop("sites", None)
+        line.pop("record", None)
+        emit({"phase": "trace", **line})
+    emit({"phase": "trace", "seconds": round(time.time() - t0, 3),
+          "rc": proc.returncode})
+    if proc.returncode != 0 or verdict is None or not verdict["ok"]:
+        fail(f"trace_check: rc {proc.returncode}, "
+             f"{verdict['problems'] if verdict else proc.stderr[-2000:]}")
+
+
 def phase_autolabel(state, workdir: Path):
     """Voronoi and region-grow labels from a synthetic 1 km^2 nDSM on the
     card with TF32 at torch's defaults, held against the CPU; the seed
@@ -3636,6 +3672,8 @@ def main() -> None:
             phase_eval(state, work)
         if "autolabel" in phases:
             phase_autolabel(state, work)
+        if "trace" in phases:
+            phase_trace(state)
     if set(phases) == set(PHASES):
         emit(kernels_line(state))
     emit({"phase": "done", "seconds": round(time.time() - t_start, 3)})

@@ -123,7 +123,8 @@ class MaskRCNN(nn.Module):
         replaces the flat layout's pooler, e.g. by K1's plain version; it is
         refused with another layout.  ``mark``, if given, is called with the
         name of each stage of ``STAGES`` once its work is enqueued (the
-        bench records a CUDA event there)."""
+        benchmark records a CUDA event there; while tracing is on the
+        Predictor's ``utils.profiling.StageMarks`` ends a stage span)."""
         c = self.cfg
         dtype = self.compute_dtype
         b = images.shape[0]

@@ -13,6 +13,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from treedetection_tpu_torch.utils.profiling import span
+
 _INTERP_CACHE: Dict[Tuple[int, int, torch.dtype, torch.device], torch.Tensor] = {}
 
 
@@ -73,9 +75,14 @@ def normalize_bgr(rgb: torch.Tensor,
                   ) -> torch.Tensor:
     """RGB(I) (..., C>=3) uint8/float -> normalized BGR float32 (..., 3)
     (detectron2 caffe convention: BGR order, mean subtraction)."""
-    bgr = rgb[..., [2, 1, 0]].to(torch.float32)
-    mean = torch.tensor(pixel_mean, dtype=torch.float32, device=rgb.device)
-    std = torch.tensor(pixel_std, dtype=torch.float32, device=rgb.device)
+    # each of the three copies of host values to the card is a sync
+    with span("sync.normalize"):
+        bgr = rgb[..., [2, 1, 0]].to(torch.float32)
+    with span("sync.normalize"):
+        mean = torch.tensor(pixel_mean, dtype=torch.float32,
+                            device=rgb.device)
+    with span("sync.normalize"):
+        std = torch.tensor(pixel_std, dtype=torch.float32, device=rgb.device)
     return (bgr - mean) / std
 
 

@@ -57,6 +57,7 @@ from typing import Dict, Sequence
 import torch
 
 from treedetection_tpu_torch.build import build_shared_library, nvcc_path
+from treedetection_tpu_torch.utils.profiling import span
 
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -214,8 +215,11 @@ def roi_pool_patches_flat(fcat: torch.Tensor, rows: torch.Tensor,
     _check_common([fcat], {"rows": (rows, ()), "cols": (cols, ())}, ay, ax,
                   resolution, patch)
     n, c = rows.shape[0], fcat.shape[-1]
-    if n and bool((cols % 8 != 0).any()):
-        raise ValueError("cols must be multiples of 8")
+    if n:
+        with span("sync.k1_cols"):
+            odd = bool((cols % 8 != 0).any())
+        if odd:
+            raise ValueError("cols must be multiples of 8")
     if fcat.device.type == "cpu":
         return roi_pool_patches_flat_reference(fcat, rows, cols, ay, ax,
                                                resolution, patch)
@@ -281,8 +285,9 @@ def _check_meta(meta: torch.Tensor, n_levels: int, *extra: torch.Tensor):
     device and fetched together in four launches, so a call on the card
     pays one synchronisation and little host time for its value checks."""
     lo, hi = torch.aminmax(meta[:, 0])
-    lo, hi, odd, *rest = torch.stack(
-        [lo, hi, (meta[:, 2] & 7).amax(), *extra]).tolist()
+    with span("sync.k5_meta"):
+        lo, hi, odd, *rest = torch.stack(
+            [lo, hi, (meta[:, 2] & 7).amax(), *extra]).tolist()
     if lo < 0 or hi >= n_levels:
         raise ValueError(f"meta[:, 0] must be a level in [0, {n_levels})")
     if odd:
@@ -431,8 +436,10 @@ def _check_resident(fmaps_padded, meta, ay, ax, resolution, patch, chunk,
     if n:
         _, sec_hs, sec_ws = resident_geometry(fmaps_padded, n_images, patch)
         lvl = meta[:, 0].long().clamp(0, len(fmaps_padded) - 1)
-        max_r = torch.tensor(sec_hs, device=meta.device)[lvl] - patch
-        max_c = torch.tensor(sec_ws, device=meta.device)[lvl] - (patch + 8)
+        with span("sync.k6_bounds"):
+            max_r = torch.tensor(sec_hs, device=meta.device)[lvl] - patch
+        with span("sync.k6_bounds"):
+            max_c = torch.tensor(sec_ws, device=meta.device)[lvl] - (patch + 8)
         outside = ((meta[:, 1] < 0) | (meta[:, 1] > max_r) | (meta[:, 2] < 0)
                    | (meta[:, 2] > max_c)).any().to(meta.dtype)
         if _check_meta(meta, len(fmaps_padded), outside)[0]:

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from treedetection_tpu_torch.ops.boxes import box_iou_matrix
+from treedetection_tpu_torch.utils.profiling import span
 
 # sweeps run between convergence checks: each check is one device->host
 # sync, and sweeps past the fixpoint change nothing
@@ -58,7 +59,9 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
             prev = keep
             hits = torch.matmul(keep.to(mm_dtype).unsqueeze(-2), suppress)
             keep = valid & (hits.squeeze(-2) == 0)
-        if torch.equal(keep, prev):
+        with span("sync.nms"):
+            settled = torch.equal(keep, prev)
+        if settled:
             break
     return torch.zeros_like(keep).scatter(-1, order, keep)
 

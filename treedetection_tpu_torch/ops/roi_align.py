@@ -47,6 +47,7 @@ from treedetection_tpu_torch.ops.kernels.roi_align import (
     resident_geometry, resident_l2_budget, resident_section_bytes,
     roi_pool_patches, roi_pool_patches_flat, roi_pool_resident)
 from treedetection_tpu_torch.ops.nms import stable_topk
+from treedetection_tpu_torch.utils.profiling import span
 
 # Static per-box patch span (rows); the column window is PATCH + 8 because the
 # column origin snaps down to a multiple of 8.
@@ -199,6 +200,14 @@ def roi_align(fmap: torch.Tensor, boxes: torch.Tensor, resolution: int,
     return out.mean(dim=(3, 4))
 
 
+def _h2d(make, values, **kwargs) -> torch.Tensor:
+    """``make(values, **kwargs)``: ``torch.tensor`` or ``torch.as_tensor``
+    of host values (the level geometry) on the device; on the card a copy
+    from pageable memory, which waits for the stream."""
+    with span("sync.pool_h2d"):
+        return make(values, **kwargs)
+
+
 def _patch_pool_prep(flat_boxes: torch.Tensor, hs: np.ndarray, ws: np.ndarray,
                      strides: Sequence[int], resolution: int,
                      sampling_ratio: int, n_levels: int):
@@ -209,9 +218,9 @@ def _patch_pool_prep(flat_boxes: torch.Tensor, hs: np.ndarray, ws: np.ndarray,
     """
     dev, dt = flat_boxes.device, flat_boxes.dtype
     levels = assign_fpn_levels(flat_boxes, min_level=2, max_level=1 + n_levels)
-    scale = (1.0 / torch.tensor(strides, dtype=dt, device=dev))[levels]
-    h_l = torch.as_tensor(hs, device=dev)[levels]
-    w_l = torch.as_tensor(ws, device=dev)[levels]
+    scale = (1.0 / _h2d(torch.tensor, strides, dtype=dt, device=dev))[levels]
+    h_l = _h2d(torch.as_tensor, hs, device=dev)[levels]
+    w_l = _h2d(torch.as_tensor, ws, device=dev)[levels]
 
     sboxes = flat_boxes * scale[:, None]
     x0 = sboxes[:, 0] - 0.5
@@ -274,10 +283,10 @@ def _gather_rows_core(flat: torch.Tensor, bases: np.ndarray, wps: np.ndarray,
     hps = np.asarray(hs) + PATCH
 
     def per_box(values):
-        return torch.as_tensor(np.asarray(values), device=dev)[levels][
+        return _h2d(torch.as_tensor, np.asarray(values), device=dev)[levels][
             :, None, None, None, None]
 
-    scales = 1.0 / torch.tensor(strides, dtype=dt, device=dev)
+    scales = 1.0 / _h2d(torch.tensor, strides, dtype=dt, device=dev)
     ys, xs = _sample_grid(boxes, scales[levels], resolution, sampling_ratio)
     h, w, hp, wp = per_box(hs), per_box(ws), per_box(hps), per_box(wps)
     base = per_box(bases) + (img[:, None, None, None, None] * hp) * wp
@@ -431,8 +440,9 @@ def flat_pool_inputs(fmaps: Sequence[torch.Tensor], boxes: torch.Tensor,
         sec = kcat[int(lvl_base[l]):int(lvl_base[l] + sec_rows[l])]
         sec.view(b, h + PATCH, wmax, c)[:, :h, :w] = f
 
-    row_base = g.img * torch.as_tensor(hs + PATCH, device=dev)[g.levels]
-    abs_row = torch.as_tensor(lvl_base, device=dev)[g.levels] + row_base + g.oy
+    row_base = g.img * _h2d(torch.as_tensor, hs + PATCH, device=dev)[g.levels]
+    abs_row = (_h2d(torch.as_tensor, lvl_base, device=dev)[g.levels]
+               + row_base + g.oy)
     return FlatPoolInputs(
         kcat=kcat, rows=abs_row.to(torch.int32).contiguous(),
         cols=g.ox_al.to(torch.int32).contiguous(), lvl_base=lvl_base, geom=g)
@@ -470,7 +480,8 @@ def level_pool_inputs(fmaps: Sequence[torch.Tensor], boxes: torch.Tensor,
                           device=dev)
         buf.view(b, h + PATCH, w + CPATCH, c)[:, :h, :w] = f
         kpadded.append(buf)
-    row_base = g.img * torch.as_tensor(g.hs + PATCH, device=dev)[g.levels]
+    row_base = g.img * _h2d(torch.as_tensor, g.hs + PATCH,
+                            device=dev)[g.levels]
     meta = torch.stack([g.levels, row_base + g.oy, g.ox_al], dim=1)
     return LevelPoolInputs(kpadded=tuple(kpadded),
                            meta=meta.to(torch.int32).contiguous(), geom=g)
@@ -527,8 +538,10 @@ def resident_pool_inputs(p: LevelPoolInputs, resolution: int,
     if c_split is None:
         c_split = resident_c_split(p.kpadded, n_images)
     _, sec_hs, sec_ws = resident_geometry(p.kpadded, n_images, PATCH)
-    max_r0 = torch.tensor([h - PATCH for h in sec_hs], device=dev)[g.levels]
-    max_c0 = torch.tensor([w - CPATCH for w in sec_ws], device=dev)[g.levels]
+    max_r0 = _h2d(torch.tensor, [h - PATCH for h in sec_hs],
+                  device=dev)[g.levels]
+    max_c0 = _h2d(torch.tensor, [w - CPATCH for w in sec_ws],
+                  device=dev)[g.levels]
     r0 = torch.minimum(g.oy, max_r0)
     c0 = torch.minimum(g.ox_al, max_c0)
     sy2 = g.sy + (g.oy - r0).to(g.sy.dtype)[:, None]

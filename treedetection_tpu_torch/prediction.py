@@ -60,7 +60,7 @@ from treedetection_tpu_torch.config import model_spec
 from treedetection_tpu_torch.geo import Affine, GeoTiff
 from treedetection_tpu_torch.models.convert import load_checkpoint
 from treedetection_tpu_torch.models.mask_rcnn import (
-    MaskRCNN, MaskRCNNConfig, ModelOutput)
+    STAGES, MaskRCNN, MaskRCNNConfig, ModelOutput)
 from treedetection_tpu_torch.native import resize_threshold_mask, trace_contours
 from treedetection_tpu_torch.ops.image import normalize_bgr, resize_bilinear
 from treedetection_tpu_torch.ops.kernels import roi_align as roi_kernels
@@ -69,10 +69,16 @@ from treedetection_tpu_torch.ops.roi_align import (
 from treedetection_tpu_torch.parallel.mesh import (
     dispatch_executor, make_mesh, replicate, sharded_forward)
 from treedetection_tpu_torch.preprocessing import load_tile_metadata
-from treedetection_tpu_torch.utils.profiling import profile_trace
+from treedetection_tpu_torch.utils import profiling
+from treedetection_tpu_torch.utils.profiling import profile_trace, span
 
 # Timing and counters of the most recent Predictor run.
 LAST_RUN_STATS: Dict[str, float] = {}
+
+# stages whose device milliseconds a traced batch's record keeps: the
+# backbone with the RPN head, and the heads (from the rpn mark to the
+# maskhead mark)
+DEVICE_TIMED_STAGES = ("rpn", "maskhead")
 
 
 def get_predictor(config: Dict[str, Any], model_path: Optional[str]
@@ -188,6 +194,19 @@ def band_predrop_bounds(cfg: Dict[str, Any], tif_basename: str,
             bounds[2] - half_w, bounds[3] - half_h)
 
 
+class _Dispatch:
+    """``dispatch_executor(devices)`` whose ``submit`` stamps each
+    submission while tracing is on, for the batch record's ``queue``."""
+
+    def __init__(self, devices):
+        self.executor = dispatch_executor(devices)
+
+    def submit(self, fn, *args):
+        if profiling.tracing():
+            fn = profiling.queued(fn)
+        return self.executor.submit(fn, *args)
+
+
 class Predictor:
     """Batched tile predictor bound to one model checkpoint:
     ``Predictor(config, model_path)(tifpath, tile_metadata_path, output_dir,
@@ -197,6 +216,14 @@ class Predictor:
     ``config.select_devices``), or ``config["devices"]`` several, which
     split each batch (``parallel.make_mesh``).  ``mixed_precision`` runs the
     model in bfloat16 on the GPU; on the CPU it always runs float32.
+
+    While tracing is on (``utils.profiling``: a ``torch.profiler`` session
+    runs), each batch forward leaves a record in ``profiling.TRACE`` with
+    the spans ``predictor.forward`` around ``predictor.pin``,
+    ``predictor.h2d``, ``predictor.preprocess``, one ``mask_rcnn.<stage>``
+    per stage of ``STAGES`` and ``predictor.d2h``, and on the card the
+    device milliseconds of ``DEVICE_TIMED_STAGES``; ``_predict_image`` adds
+    ``predictor.decode_wait``, ``predictor.fetch`` and ``predictor.flush``.
     """
 
     # eager stitch sink for the in-flight image (set per __call__); None
@@ -258,7 +285,9 @@ class Predictor:
             self.devices)
         # where batches are submitted: the device's long-lived thread (the
         # warm-up's too, so the two are ordered without a lock)
-        self._dispatch = dispatch_executor(self.devices)
+        self._dispatch = _Dispatch(self.devices)
+        # the open batch record, for chunks that run on other threads
+        self._record: Optional[profiling.BatchRecord] = None
         # pad -> seconds of its warm-up
         self._warm_pads: Dict[int, float] = {}
         # overflow counts summed over every image this Predictor has run
@@ -290,10 +319,18 @@ class Predictor:
                        raw: torch.Tensor, pad: int) -> ModelOutput:
         """One device's chunk: (b, pad, pad, 3) uint8 on the host -> its
         ``ModelOutput`` copied to the host (queued on the current stream)."""
-        with torch.no_grad():
-            x = self.preprocess(raw.to(device, non_blocking=True), pad)
-            out = model(x)
-        return ModelOutput(*[t.to("cpu", non_blocking=True) for t in out])
+        with profiling.attach(self._record), torch.no_grad():
+            with span("predictor.h2d"):
+                on_device = raw.to(device, non_blocking=True)
+            with span("predictor.preprocess"):
+                x = self.preprocess(on_device, pad)
+                del on_device        # freed before the model runs
+            with profiling.stage_marks(STAGES, "mask_rcnn", device,
+                                       DEVICE_TIMED_STAGES) as mark:
+                out = model(x, mark=mark)
+            with span("predictor.d2h"):
+                return ModelOutput(*[t.to("cpu", non_blocking=True)
+                                     for t in out])
 
     def _get_forward(self, pad: int):
         """-> (forward taking a (B, pad, pad, 3) uint8 numpy batch and
@@ -302,10 +339,16 @@ class Predictor:
         content = self._content(pad)
 
         def forward(raw_tiles: np.ndarray) -> List[Tuple[ModelOutput, Any]]:
-            raw = torch.from_numpy(raw_tiles)
-            if self.device.type == "cuda":
-                raw = raw.pin_memory()
-            return self._forward(raw, pad)
+            with profiling.trace_batch("predictor.forward") as record:
+                with span("predictor.pin"):
+                    raw = torch.from_numpy(raw_tiles)
+                    if self.device.type == "cuda":
+                        raw = raw.pin_memory()
+                self._record = record
+                try:
+                    return self._forward(raw, pad)
+                finally:
+                    self._record = None
 
         return forward, pad / content
 
@@ -465,32 +508,37 @@ class Predictor:
 
         def flush(batch_items, fut, sizes):
             nonlocal written
-            t0 = time.time()
-            parts = fut.result()
-            for _, event in parts:
-                if event is not None:
-                    event.synchronize()
-            out = ModelOutput(*[
-                np.concatenate([p[k].numpy() for p, _ in parts])
-                if len(parts) > 1 else parts[0][0][k].numpy()
-                for k in range(len(ModelOutput._fields))])
-            stats["fetch_s"] += time.time() - t0
-            roi, prop = int(out.roi_overflow.sum()), int(out.prop_overflow.sum())
-            stats["roi_overflow"] += roi
-            stats["prop_overflow"] += prop
-            # two distinct signals: truncated VALID detections, and
-            # truncated top-quartile proposals (which can suppress detections)
-            report_overflow_host(roi, f" (batch of {batch_items[0]['tile_id']})")
-            report_overflow_host(
-                prop, f" (top-quartile PROPOSALS, batch of "
-                      f"{batch_items[0]['tile_id']}; truncated proposals can "
-                      f"suppress detections)")
-            for k, it in enumerate(batch_items):
-                self._write_tile_predictions(
-                    it, out.boxes[k], out.scores[k], out.masks[k],
-                    out.valid[k], sizes[k], box_scale, tifpath, output_dir)
-                written += 1
-            stats["flush_s"] += time.time() - t0
+            with span("predictor.flush", timed=True) as whole:
+                with span("predictor.fetch", timed=True) as fetch:
+                    parts = fut.result()
+                    for _, event in parts:
+                        if event is not None:
+                            event.synchronize()
+                    out = ModelOutput(*[
+                        np.concatenate([p[k].numpy() for p, _ in parts])
+                        if len(parts) > 1 else parts[0][0][k].numpy()
+                        for k in range(len(ModelOutput._fields))])
+                stats["fetch_s"] += fetch.seconds
+                roi = int(out.roi_overflow.sum())
+                prop = int(out.prop_overflow.sum())
+                stats["roi_overflow"] += roi
+                stats["prop_overflow"] += prop
+                # two distinct signals: truncated VALID detections, and
+                # truncated top-quartile proposals (which can suppress
+                # detections)
+                report_overflow_host(
+                    roi, f" (batch of {batch_items[0]['tile_id']})")
+                report_overflow_host(
+                    prop, f" (top-quartile PROPOSALS, batch of "
+                          f"{batch_items[0]['tile_id']}; truncated proposals "
+                          f"can suppress detections)")
+                for k, it in enumerate(batch_items):
+                    self._write_tile_predictions(
+                        it, out.boxes[k], out.scores[k], out.masks[k],
+                        out.valid[k], sizes[k], box_scale, tifpath,
+                        output_dir)
+                    written += 1
+            stats["flush_s"] += whole.seconds
 
         workers = max(int(self.config.get("num_workers") or 8), 1)
         depth = max(int(self.config.get("prefetch_batches", 2)), 1)
@@ -512,7 +560,8 @@ class Predictor:
                     decode_q.append((nxt[0], decode_ex.submit(
                         self._decode, src, nxt[1], pad)))
                 try:
-                    tile, hw = fut.result()
+                    with span("predictor.decode_wait"):
+                        tile, hw = fut.result()
                 except (OSError, ValueError) as exc:
                     # one corrupt tile window must not kill the image
                     if self.logger:
