@@ -34,7 +34,15 @@ pipeline_two_model,bench,train,train_sharded,eval,autolabel,trace:
                (uint8 mask, host unpack and nonzero) against the new one
                (bits, pairs on the card) on the same boxes; medians of CUDA
                event timings, the kernels' device time, and the bounds
-               computed from this run's inputs.
+               computed from this run's inputs; the batched pooler's
+               geometry kernel against its plain version run by PyTorch on
+               the card, every output field with 0 bit mismatches (the
+               phase's boxes, adversarial, huge, sqrt(area) at 224 * 2^k and
+               one ulp either side, zero-area and off-image boxes), its
+               exact-tail kernel against its plain version within the
+               pooler's tolerance (mixed take flags, and every box), each
+               timed alone and through its wrapper with its launches, and
+               one pooling call's host time and launches.
 3. predictor — the port's Predictor (R50-FPN, 1024^2, batch 10, 512
                proposals, bf16) on a synthetic 1000x1000 px RGBI GeoTIFF
                tiled into 16 tiles: a first pass, then a timed pass with the
@@ -180,7 +188,8 @@ PEAK_FLOPS = {"float32": 67e12,     # CUDA cores, no tensor cores
 PHASES = ("build", "kernel", "predictor", "model", "pipeline",
           "pipeline_multihost", "warmup", "pipeline_two_model", "bench",
           "train", "train_sharded", "eval", "autolabel", "trace")
-ROI_LIBRARIES = ("roi_pool_flat", "roi_pool_levels", "roi_pool_resident")
+ROI_LIBRARIES = ("roi_pool_flat", "roi_pool_levels", "roi_pool_resident",
+                 "roi_pool_prep")
 K6_CHUNKS = (1, 2, 4, 8, 16, 32)   # boxes per block timed in the kernel phase
 PAIRWISE_BLOCK_ROWS, PAIRWISE_COLS = 8192, 32768   # one production row block
 # float32 operations per (row, column) pair that the function needs, counted
@@ -747,6 +756,217 @@ def phase_kernel(state):
                 emit(line)
             del k1_out, flat, lvl, res, calls
             torch.cuda.empty_cache()
+
+
+# --- phase 2a: the batched pooler's geometry and exact-tail kernels ----------
+
+GEOMETRY_FIELDS = ("img", "levels", "oy", "ox_al", "sy", "sx_al", "valid_y",
+                   "valid_x", "ay", "ax", "overflow", "prio")
+
+
+def _geometry_box_sets(rng):
+    """name -> (B, N, 4) float32 boxes for the geometry kernel's check."""
+    b, n = 10, 512
+    phase = _synthetic_boxes(rng, b, n)
+    huge = _huge_boxes(phase.reshape(-1, 4), None)[0].reshape(b, n, 4)
+    sides, squares, near = [], [], []
+    for k in range(-4, 4):          # sqrt(area) = 224 * 2^k, one ulp off
+        side = np.float32(224.0 * 2.0 ** k)
+        for v in (np.nextafter(side, np.float32(0)), side,
+                  np.nextafter(side, np.float32(np.inf))):
+            sides.append([0.0, 0.0, v, v])
+            near.append([0.0, 0.0, side, v])
+        squares.append([0.0, 0.0, 2 * side, side / 2])   # area exactly side^2
+        squares.append([100.0, 40.0, 100.0 + side, 40.0 + side])
+    edges = []
+    for x, y, w, h in ((30, 30, 0, 40), (30, 30, 40, 0), (5, 5, 0, 0),
+                       (1024, 1024, 0, 0), (-60, -60, 120, 90),
+                       (980, 990, 200, 150), (-500, 400, 2100, 30),
+                       (400, -700, 25, 2500), (-2000, -2000, 5000, 5000),
+                       (1023.5, 0, 1.0, 1024)):
+        edges.append([x, y, x + w, y + h])
+    special = np.asarray(sides + near + squares + edges, dtype=np.float32)
+    return {"phase": phase, "huge": huge.astype(np.float32),
+            "adversarial": _adversarial_boxes()[0][None],
+            "special": special[None]}
+
+
+def geometry_mismatches(mine, index, plain, plain_index):
+    """Per output field, the number of elements whose bits differ."""
+    import torch
+    out = {}
+    for name in GEOMETRY_FIELDS + ("index",):
+        a = index if name == "index" else getattr(mine, name)
+        b = plain_index if name == "index" else getattr(plain, name)
+        if a.dtype != b.dtype or a.shape != b.shape:
+            out[name] = f"{a.dtype} {tuple(a.shape)} vs {b.dtype} " \
+                        f"{tuple(b.shape)}"
+            continue
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        out[name] = int((a != b).sum())
+    return out
+
+
+def _launches_per_call(fn):
+    """Kernels, copies and fills that one call of ``fn`` puts on the card
+    (torch.profiler), after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_kernel_prep(state):
+    """The geometry kernel bit for bit against ``_box_geometry`` and
+    ``_window_index`` run on the card; the exact-tail kernel against
+    ``_exact_tail_reference`` within the pooler's tolerance; timings, and
+    one batched pooling call's host time and launches."""
+    import torch
+    from treedetection_tpu_torch.ops import roi_align as ra
+    from treedetection_tpu_torch.ops.kernels import roi_align as k
+    from treedetection_tpu_torch.ops.nms import stable_topk
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(7)
+    strides = (4, 8, 16, 32)
+    hs = [1024 // s for s in strides]
+    for name, boxes_np in _geometry_box_sets(rng).items():
+        boxes = torch.from_numpy(boxes_np).to(dev)
+        b, n = boxes.shape[:2]
+        table = ra.level_table(hs, hs, strides, b, dev)
+        img = torch.arange(b, device=dev).repeat_interleave(n)
+        for r in (7, 14):
+            plain = ra._box_geometry(boxes.reshape(-1, 4), img, table, r, 2)
+            for flat in (True, False):
+                mine, index = ra.box_geometry(boxes, table, r, 2, flat)
+                bad = geometry_mismatches(mine, index, plain,
+                                          ra._window_index(plain, flat))
+                torch.cuda.synchronize()
+                emit({"phase": "kernel", "kernel": "roi_geometry",
+                      "boxes": name, "n": b * n, "resolution": r,
+                      "layout": "flat" if flat else "levels",
+                      "mismatches": bad,
+                      "levels_seen": sorted(set(
+                          plain.levels.tolist())),
+                      "overflowing": int(plain.overflow.sum())})
+                if any(v != 0 for v in bad.values()):
+                    fail(f"kernel roi_geometry {name} R={r}: mismatches "
+                         f"{bad} (expected 0 in every field)")
+
+    b, c = 10, 256
+    feats32 = [torch.from_numpy(rng.standard_normal(
+        (b, 1024 // s, 1024 // s, c)).astype(np.float32)).to(dev)
+        for s in strides]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        feats = [f.to(dtype) for f in feats32]
+        for pool, n, r in (("box", 512, 7), ("mask", 100, 14)):
+            boxes = torch.from_numpy(_synthetic_boxes(rng, b, n)).to(dev)
+            for layout, prep in (("flat", ra.flat_pool_inputs),
+                                 ("levels", ra.level_pool_inputs)):
+                p = prep(feats, boxes, r, strides)
+                flat = layout == "flat"
+                buffers = (p.kcat,) if flat else p.kpadded
+                g = p.geom
+                m = int(np.ceil(n * (0.05 if r <= 8 else 0.08)))
+                idx = torch.stack([torch.randperm(n, device=dev)[:m]
+                                   for _ in range(b)])
+                flag = torch.from_numpy(rng.choice(
+                    [0.0, 2.0], (b, m)).astype(np.float32)).to(dev)
+                every = (torch.ones(n, device=dev).expand(b, n),
+                         torch.arange(n, device=dev).expand(b, n))
+                for picked, (fl, ix) in (("mixed", (flag, idx)),
+                                         ("every_box", every)):
+                    start = torch.randn((b * n, r, r, c), device=dev).to(dtype)
+                    got, ref = start.clone(), start.clone()
+                    sel_got = torch.zeros(b * n, dtype=torch.bool, device=dev)
+                    sel_ref = sel_got.clone()
+                    before = k.launches_exact_tail
+                    ra.exact_tail(buffers, flat, g, fl, ix, got, sel_got, r,
+                                  2)
+                    ra._exact_tail_reference(buffers, flat, g, fl, ix, ref,
+                                             sel_ref, r, 2)
+                    torch.cuda.synchronize()
+                    ok, err, tol = check_close(got, ref, dname)
+                    untouched = ~sel_ref
+                    same_rest = bool(torch.equal(got[untouched],
+                                                 start[untouched]))
+                    same_sel = bool(torch.equal(sel_got, sel_ref))
+                    row = {"phase": "kernel", "kernel": "roi_exact_tail",
+                           "pool": pool, "dtype": dname, "layout": layout,
+                           "picked": picked, "taken": int(sel_ref.sum()),
+                           "max_abs_err": err, "tolerance": tol,
+                           "untouched_rows_equal": same_rest,
+                           "sel_equal": same_sel,
+                           "launches": k.launches_exact_tail - before}
+                    if dtype == torch.bfloat16:
+                        row["vs_plain"] = ulp_errors(got, ref)
+                    if picked == "mixed" and flat:
+                        row["ms"] = _timed_ms(lambda: ra.exact_tail(
+                            buffers, flat, g, fl, ix, got, None, r, 2))
+                        row["device_ms"] = _device_ms(
+                            lambda: ra.exact_tail(buffers, flat, g, fl, ix,
+                                                  got, None, r, 2),
+                            "exact_tail_kernel")
+                        row["plain_ms"] = _timed_ms(
+                            lambda: ra._exact_tail_reference(
+                                buffers, flat, g, fl, ix, ref, None, r, 2),
+                            1, 3)
+                    emit(row)
+                    if not (ok and same_rest and same_sel
+                            and row["launches"] == 1):
+                        fail(f"kernel roi_exact_tail {pool} {dname} "
+                             f"{layout} {picked}: {row}")
+                    del got, ref, start
+                if flat:
+                    table = g.table
+                    geom = {"phase": "kernel", "kernel": "roi_geometry",
+                            "pool": pool, "dtype": dname, "n": b * n,
+                            "resolution": r}
+                    before = k.launches_geometry
+                    ra.box_geometry(boxes, table, r, 2, True)
+                    geom["launches"] = k.launches_geometry - before
+                    geom["ms"] = _timed_ms(
+                        lambda: ra.box_geometry(boxes, table, r, 2, True))
+                    geom["device_ms"] = _device_ms(
+                        lambda: ra.box_geometry(boxes, table, r, 2, True),
+                        "box_geometry_kernel")
+                    img = torch.arange(b, device=dev).repeat_interleave(n)
+                    geom["plain_ms"] = _timed_ms(lambda: ra._window_index(
+                        ra._box_geometry(boxes.reshape(-1, 4), img, table,
+                                         r, 2), True), 1, 3)
+                    emit(geom)
+                    if geom["launches"] != 1:
+                        fail(f"kernel roi_geometry: {geom}")
+                del p, buffers, g
+            if dtype == torch.bfloat16:
+                # one pooling call of the default layout: the host's time to
+                # enqueue it (no sync at steady state) and what it launches
+                def call():
+                    return ra.multilevel_roi_align_batched(feats, boxes, r,
+                                                           strides)
+                call()
+                torch.cuda.synchronize()
+                host = []
+                for _ in range(20):
+                    t0 = time.perf_counter()
+                    call()
+                    host.append((time.perf_counter() - t0) * 1e3)
+                    torch.cuda.synchronize()
+                emit({"phase": "kernel", "kernel": "pooling_call",
+                      "pool": pool, "dtype": dname, "n": b * n,
+                      "resolution": r,
+                      "host_ms_median": statistics.median(host),
+                      "host_ms_min": min(host),
+                      "launches": _launches_per_call(call),
+                      "ms": _timed_ms(call)})
+        del feats
+        torch.cuda.empty_cache()
 
 
 # --- phase 2b: K2/K3/K4 against their plain versions, exactly ----------------
@@ -3645,6 +3865,7 @@ def main() -> None:
             phase_build(state)
         if "kernel" in phases:
             phase_kernel(state)
+            phase_kernel_prep(state)
             phase_kernel_pairwise(state)
         if "predictor" in phases:
             phase_predictor(state, work)

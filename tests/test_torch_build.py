@@ -17,6 +17,7 @@ LIBRARIES = {
     "roi_pool_flat": {"roi_pool_bf16.cuh", "roi_pool_window.cuh"},
     "roi_pool_levels": {"roi_pool_bf16.cuh", "roi_pool_window.cuh"},
     "roi_pool_resident": {"roi_pool_bf16.cuh", "roi_pool_window.cuh"},
+    "roi_pool_prep": set(),
     "pairwise_boxes": set(),
 }
 

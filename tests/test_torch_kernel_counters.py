@@ -96,7 +96,8 @@ def test_pair_launches_counted_exactly_from_many_threads(fake_card):
 
 
 @pytest.mark.parametrize("name", ["launches", "launches_patches",
-                                  "launches_resident"])
+                                  "launches_resident", "launches_geometry",
+                                  "launches_exact_tail"])
 def test_roi_launches_counted_exactly_from_many_threads(monkeypatch, name):
     monkeypatch.setattr(k156, name, 0)
     _hammer(lambda: k156._count(name))

@@ -1,6 +1,6 @@
-"""K1, K5, K6 (the flat, per-level and image-resident ROIAlign patch poolers)
-and K2/K3/K4 (the pairwise box-relation masks) on the card against their
-plain versions.
+"""K1, K5, K6 (the flat, per-level and image-resident ROIAlign patch poolers),
+the batched pooler's geometry and exact-tail kernels, and K2/K3/K4 (the
+pairwise box-relation masks) on the card against their plain versions.
 
 These tests need an NVIDIA GPU: they carry the ``gpu`` marker and skip
 elsewhere.  On the card: ``python -m pytest tests/test_torch_kernels.py``.
@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from treedetection_tpu_torch.ops import roi_align as ra
 from treedetection_tpu_torch.ops.kernels import pairwise as k234
 from treedetection_tpu_torch.ops.kernels import roi_align as k1
 from treedetection_tpu_torch.ops.roi_align import (
@@ -68,6 +69,74 @@ def test_k1_matches_plain_version(cuda, resolution, dtype):
     torch.cuda.synchronize()
     assert k1.launches == before + 1
     _assert_close(got, k1.roi_pool_patches_flat_reference(*args), dtype)
+
+
+@pytest.mark.parametrize("flat", [True, False], ids=["flat", "levels"])
+@pytest.mark.parametrize("resolution", [7, 14])
+def test_geometry_kernel_equals_plain_version_bit_for_bit(cuda, resolution,
+                                                          flat):
+    """Every output of the geometry kernel has the bits of the plain
+    version run by PyTorch on the card: boxes of every level, reaching off
+    the image, zero-area, and sqrt(area) at 224 * 2^k and one ulp off."""
+    rng = np.random.default_rng(resolution)
+    ctr = rng.uniform(-50, 560, (3, 40, 2))
+    wh = rng.uniform(0, 400, (3, 40, 2))
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+    for i, k in enumerate(range(-3, 3)):
+        side = np.float32(224.0 * 2.0 ** k)
+        for j, v in enumerate((np.nextafter(side, np.float32(0)), side,
+                               np.nextafter(side, np.float32(np.inf)))):
+            boxes[j, i] = [0.0, 0.0, v, v]
+    boxes[:, 30] = [40.0, 40.0, 40.0, 90.0]
+    boxes = torch.from_numpy(boxes.astype(np.float32)).to(cuda)
+    table = ra.level_table([128, 64, 32, 16], [128, 64, 32, 16],
+                           (4, 8, 16, 32), 3, cuda)
+    before = k1.launches_geometry
+    g, index = ra.box_geometry(boxes, table, resolution, 2, flat)
+    img = torch.arange(3, device=cuda).repeat_interleave(40)
+    plain = ra._box_geometry(boxes.reshape(-1, 4), img, table, resolution, 2)
+    torch.cuda.synchronize()
+    assert k1.launches_geometry == before + 1
+    for name in ("img", "levels", "oy", "ox_al", "sy", "sx_al", "valid_y",
+                 "valid_x", "ay", "ax", "overflow", "prio"):
+        a, b = getattr(g, name), getattr(plain, name)
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), name
+    assert torch.equal(index, ra._window_index(plain, flat))
+    assert len(set(plain.levels.tolist())) == 4
+
+
+@pytest.mark.parametrize("flat", [True, False], ids=["flat", "levels"])
+@pytest.mark.parametrize("resolution", [7, 14])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exact_tail_kernel_matches_plain_version(cuda, dtype, resolution,
+                                                 flat):
+    """The exact tail on a (B, m) pick with mixed flags: the taken rows as
+    the plain version pools them (K1's tolerance), every other row and
+    flag left alone."""
+    prep = flat_pool_inputs if flat else level_pool_inputs
+    p = _inputs(cuda, dtype, resolution, prep=prep)
+    buffers = (p.kcat,) if flat else p.kpadded
+    b, n = 2, 64
+    idx = torch.stack([torch.randperm(n, device=cuda)[:9] for _ in range(b)])
+    flag = torch.tensor([[2.0, 0, 1, 0, 2, 2, 0, 1, 0]] * b, device=cuda)
+    start = torch.randn((b * n, resolution, resolution, 64),
+                        device=cuda).to(dtype)
+    got, ref = start.clone(), start.clone()
+    sel_got = torch.zeros(b * n, dtype=torch.bool, device=cuda)
+    sel_ref = sel_got.clone()
+    before = k1.launches_exact_tail
+    ra.exact_tail(buffers, flat, p.geom, flag, idx, got, sel_got,
+                  resolution, 2)
+    ra._exact_tail_reference(buffers, flat, p.geom, flag, idx, ref, sel_ref,
+                             resolution, 2)
+    torch.cuda.synchronize()
+    assert k1.launches_exact_tail == before + 1
+    assert torch.equal(sel_got, sel_ref) and int(sel_ref.sum()) == 10
+    assert torch.equal(got[~sel_ref], start[~sel_ref])
+    _assert_close(got, ref, dtype)
 
 
 def test_k1_raises_instead_of_falling_back(cuda):

@@ -308,8 +308,8 @@ def test_port_never_imports_jax_statically():
         sorted((PORT / "native").glob("*.cpp"))
     assert [p.name for p in sources] == [
         "pairwise_boxes.cu", "roi_pool_bf16.cuh", "roi_pool_flat.cu",
-        "roi_pool_levels.cu", "roi_pool_resident.cu", "roi_pool_window.cuh",
-        "contour.cpp"]
+        "roi_pool_levels.cu", "roi_pool_prep.cu", "roi_pool_resident.cu",
+        "roi_pool_window.cuh", "contour.cpp"]
     assert {"compat.py", "cli.py"} <= {f.name for f in files}
     assert PORT / "parallel" / "mesh.py" in files
     assert PORT / "train" / "train.py" in files

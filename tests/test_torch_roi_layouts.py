@@ -468,9 +468,9 @@ def test_layouts_agree_and_default_is_unchanged(monkeypatch, resolution):
     take = (flag > 0).reshape(-1)
     wmax = p.kcat.shape[1]
     exact = port._gather_rows_core(
-        p.kcat.reshape(-1, c), p.lvl_base * wmax, np.full(4, wmax), g.hs,
-        g.ws, g.flat_boxes[sel], g.levels[sel], g.img[sel], resolution,
-        STRIDES, 2)
+        p.kcat.reshape(-1, c), torch.from_numpy(p.lvl_base * wmax),
+        torch.full((4,), wmax), g.table, g.flat_boxes[sel], g.levels[sel],
+        g.img[sel], resolution, 2)
     want[sel] = torch.where(take[:, None, None, None], exact, want[sel])
     assert torch.equal(out_flat.reshape(want.shape), want)
     assert torch.equal(inexact_flat.reshape(-1),

@@ -12,11 +12,17 @@ events made and the device thread's syncs, against the same batch with
 tracing on.  Both run under each pooler layout of ``--layouts`` (K1, K5,
 K6).  ``chrome``: the cell's traced batches under
 ``utils.profiling.profile_trace``; the card's idle gaps in its Chrome
-trace, each part given to the innermost span open on the device thread.
+trace, each part given to the innermost span open on the device thread,
+and the device thread's launches (kernels, copies, fills) per batch, by the
+innermost span that made them.
 
 One JSON line per part on standard output, then a verdict line.  Exits 1
 when a sync of the device thread lies outside every sync span, when the
-batch record's sync count differs from the syncs seen, or when tracing off
+batch record's sync count differs from the syncs seen, when a served batch
+copies level geometry to the card (``sync.pool_h2d``) or checks K1's columns
+on the host (``sync.k1_cols``), when it does not launch the pooler's
+geometry and exact-tail kernels and its layout's patch kernel twice each
+(box and mask pool), or when tracing off
 enters a ``record_function``, makes a CUDA event beyond the batch's
 arrival events, makes a sync that tracing on does not count, or leaves
 anything in ``TRACE``.  With ``--out``, the Chrome trace, gzipped, there.
@@ -53,6 +59,17 @@ CELL = "r101_tile_stream"
 DEVICE_THREAD = "td-device"
 LAYOUT_ENV = {"flat": {}, "levels": {"TD_ROI_FLAT": "0"},
               "resident": {"TD_ROI_RESIDENT": "1"}}
+# the pooler's kernel launch counters (ops/kernels/roi_align.py), and the
+# patch kernel each layout pools with
+ROI_COUNTERS = {"geometry": "launches_geometry",
+                "exact_tail": "launches_exact_tail", "k1": "launches",
+                "k5": "launches_patches", "k6": "launches_resident"}
+LAYOUT_KERNEL = {"flat": "k1", "levels": "k5", "resident": "k6"}
+# sync spans a served batch must not open at steady state
+NO_SYNC_SITES = ("sync.pool_h2d", "sync.k1_cols")
+# the CUDA runtime and driver calls that put work on the card
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
 @contextlib.contextmanager
@@ -171,14 +188,21 @@ def serve_one(state, k: int = 0) -> int:
     return sum(event is not None for _, event in parts)
 
 
+def _roi_counts():
+    from treedetection_tpu_torch.ops.kernels import roi_align
+    return {k: getattr(roi_align, v) for k, v in ROI_COUNTERS.items()}
+
+
 def part_syncs(state, batches: int, layout: str, problems):
     from torch.profiler import ProfilerActivity, profile
     out = []
     for k in range(batches):
         profiling.trace_reset()
+        before = _roi_counts()
         with profile(activities=[ProfilerActivity.CPU]):
             with SyncLog() as log:
                 serve_one(state, k)
+        launched = {n: c - before[n] for n, c in _roi_counts().items()}
         snap = profiling.trace_snapshot()
         record = snap["batches"][-1]
         device = log.device_calls()
@@ -189,7 +213,17 @@ def part_syncs(state, batches: int, layout: str, problems):
             "sync_spans": record["syncs"], "uncovered": len(uncovered),
             "sync_span_counts": {n: c for n, c in snap["counts"].items()
                                  if n.startswith(profiling.SYNC_PREFIX)},
-            "sites": log.summary(), "record": record}
+            "roi_launches": launched, "sites": log.summary(),
+            "record": record}
+        for site in NO_SYNC_SITES:
+            if line["sync_span_counts"].get(site, 0):
+                problems.append(f"{layout} batch {k}: "
+                                f"{line['sync_span_counts'][site]} {site} "
+                                f"syncs at steady state")
+        want = {"geometry": 2, "exact_tail": 2, LAYOUT_KERNEL[layout]: 2}
+        if {n: c for n, c in launched.items() if c} != want:
+            problems.append(f"{layout} batch {k}: pooler launches "
+                            f"{launched}, expected {want}")
         if uncovered:
             problems.append(f"{layout} batch {k}: {len(uncovered)} syncs "
                             f"outside a sync span")
@@ -306,10 +340,23 @@ def idle_attribution(trace_path: str):
             labels[min(holding)[1] if holding else "(no span)"] += b - a
     window = t1 - t0
     idle = sum(labels.values())
+    # launches: the device thread's runtime calls that put work on the card,
+    # each given to the innermost span open at its start
+    launches = collections.Counter()
+    for e in events:
+        if e.get("tid") == tid and e.get("name") in LAUNCH_CALLS \
+                and t0 <= e["ts"] <= t1:
+            holding = [(se - ss, n) for ss, se, n in spans
+                       if ss <= e["ts"] <= se]
+            launches[min(holding)[1] if holding else "(no span)"] += 1
+    n_fwd = len(forwards)
     return {"window_ms": window / 1e3, "idle_ms": idle / 1e3,
             "idle_share": idle / window if window else None,
-            "forwards": len(forwards),
-            "idle_by_span_ms": {n: v / 1e3 for n, v in labels.most_common()}}
+            "forwards": n_fwd,
+            "idle_by_span_ms": {n: v / 1e3 for n, v in labels.most_common()},
+            "launches_per_batch": sum(launches.values()) / n_fwd,
+            "launches_per_batch_by_span": {
+                n: v / n_fwd for n, v in launches.most_common()}}
 
 
 def part_chrome(traffic, state, out_dir: Optional[Path]):

@@ -25,6 +25,20 @@ they differ in where the window comes from:
 
 Column origins are multiples of 8 in all three, as in the TPU kernels.
 
+Two more kernels, in ``csrc/roi_pool_prep.cu``, do the batched pooler's work
+around them on the card (``ops/roi_align.py``), where the JAX package leaves
+it to XLA inside its jitted forward:
+
+* :func:`roi_geometry` — every box's FPN level, window origin, sample
+  coordinates, hat matrices, overflow flag, exact-tail priority and the
+  window index of K1 (``rows``/``cols``) or K5 (``meta``), in one launch,
+  bit-equal to the plain PyTorch version run on the card;
+* :func:`roi_exact_tail` — the exact gather ROIAlign of the boxes a top-k
+  picked, written into the pooled output in place.
+
+Both read the pooler's per-level constants from a level table on the device
+(``TABLE_COLUMNS``).
+
 The sources (what bounds each kernel and its design are noted there) share
 two device functions: ``pool_box`` (``csrc/roi_pool_window.cuh``) pools a box
 in all three in float32; ``pool_box_bf16`` (``csrc/roi_pool_bf16.cuh``: the
@@ -73,11 +87,21 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 RESIDENT_L2_SHARE = 0.5
 H100_L2_BYTES = 50 * 1024 * 1024
 
+# Columns of the pooler's level table, one row per FPN level, in the order
+# csrc/roi_pool_prep.cu reads them: the level's height and width, the rows of
+# one image's section (h + patch), the first row of the level's sections in
+# K1's buffer, K1's buffer width, the level buffer's width (K5, K6), the
+# stride, and the largest window origin K6 may take (row, column).
+TABLE_COLUMNS = ("h", "w", "hp", "lvl_base", "flat_pitch", "level_pitch",
+                 "stride", "max_r0", "max_c0")
+
 # kernel launches since the last reset (plain counts; chip_smoke.py reads
 # them to show the main path went through each kernel)
 launches = 0            # K1
 launches_patches = 0    # K5
 launches_resident = 0   # K6
+launches_geometry = 0   # roi_geometry
+launches_exact_tail = 0  # roi_exact_tail
 _count_lock = threading.Lock()
 
 
@@ -87,13 +111,20 @@ def _count(name: str) -> None:
     with _count_lock:
         globals()[name] += 1
 
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# library (csrc/<name>.cu) -> its C entry points and their argument types
 _ARG_TYPES = {
-    "roi_pool_flat": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-    + [ctypes.c_void_p],
-    "roi_pool_levels": [ctypes.c_void_p] * 3 + [ctypes.c_int]
-    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    "roi_pool_resident": [ctypes.c_void_p] * 3 + [ctypes.c_int]
-    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "roi_pool_flat": {
+        "td_roi_pool_flat": [_P] * 6 + [_I] * 7 + [_P]},
+    "roi_pool_levels": {
+        "td_roi_pool_levels": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 5 + [_P]},
+    "roi_pool_resident": {
+        "td_roi_pool_resident": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 8
+        + [_P]},
+    "roi_pool_prep": {
+        "td_roi_geometry": [_P, _P] + [_I] * 7 + [_P] * 14,
+        "td_roi_exact_tail": [_P, _P, _I, _I, _P, _P, _L, _P, _L]
+        + [_I] * 7 + [_P] * 3},
 }
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -101,27 +132,28 @@ _lock = threading.Lock()
 
 def build(name: str = "roi_pool_flat") -> Path:
     """Compile (or find) one kernel library (``roi_pool_flat``,
-    ``roi_pool_levels`` or ``roi_pool_resident``); returns its path.  The
-    compiler's output (``-Xptxas -v`` register/shared-memory report) is kept
-    beside it as ``<name>.log``."""
+    ``roi_pool_levels``, ``roi_pool_resident`` or ``roi_pool_prep``);
+    returns its path.  The compiler's output (``-Xptxas -v``
+    register/shared-memory report) is kept beside it as ``<name>.log``."""
     if name not in _ARG_TYPES:
         raise ValueError(f"unknown kernel library {name!r}")
     return build_shared_library(name, [_CSRC / f"{name}.cu"],
                                 [nvcc_path()] + NVCC_FLAGS)
 
 
-def _get_fn(name: str):
-    """The C entry point ``td_<name>`` of one kernel library, built and
-    loaded at first use."""
+def _get_fn(name: str, entry: str = ""):
+    """The C entry point ``entry`` (default ``td_<name>``) of the kernel
+    library ``name``, built and loaded at first use."""
     if name not in _libs:
         with _lock:
             if name not in _libs:
                 lib = ctypes.CDLL(str(build(name)))
-                fn = getattr(lib, f"td_{name}")
-                fn.restype = ctypes.c_int
-                fn.argtypes = _ARG_TYPES[name]
+                for fn_name, argtypes in _ARG_TYPES[name].items():
+                    fn = getattr(lib, fn_name)
+                    fn.restype = ctypes.c_int
+                    fn.argtypes = argtypes
                 _libs[name] = lib
-    return getattr(_libs[name], f"td_{name}")
+    return getattr(_libs[name], entry or f"td_{name}")
 
 
 def _check_common(buffers: Sequence[torch.Tensor], index_tensors, ay, ax,
@@ -215,11 +247,11 @@ def roi_pool_patches_flat(fcat: torch.Tensor, rows: torch.Tensor,
     _check_common([fcat], {"rows": (rows, ()), "cols": (cols, ())}, ay, ax,
                   resolution, patch)
     n, c = rows.shape[0], fcat.shape[-1]
-    if n:
-        with span("sync.k1_cols"):
-            odd = bool((cols % 8 != 0).any())
-        if odd:
-            raise ValueError("cols must be multiples of 8")
+    if n and fcat.device.type == "cuda":   # checked on the card, no sync
+        torch._assert_async((cols % 8 == 0).all(),
+                            "cols must be multiples of 8")
+    elif n and bool((cols % 8 != 0).any()):
+        raise ValueError("cols must be multiples of 8")
     if fcat.device.type == "cpu":
         return roi_pool_patches_flat_reference(fcat, rows, cols, ay, ax,
                                                resolution, patch)
@@ -524,3 +556,147 @@ def roi_pool_resident_reference(fmaps_padded: Sequence[torch.Tensor],
         _pool_windows(fmaps_padded, m[:, 0], rows, m[:, 2], ay, ax, out,
                       patch, channels=slice(cb * c_blk, (cb + 1) * c_blk))
     return out
+
+
+# --- the batched pooler's geometry and exact tail -----------------------------
+
+def _check_table(table: torch.Tensor, device: torch.device) -> None:
+    if (table.dtype != torch.int64 or table.dim() != 2
+            or table.shape[1] != len(TABLE_COLUMNS)
+            or not 1 <= table.shape[0] <= MAX_LEVELS
+            or not table.is_contiguous() or table.device != device):
+        raise ValueError(f"the level table must be a contiguous int64 (L, "
+                         f"{len(TABLE_COLUMNS)}) tensor with 1 <= L <= "
+                         f"{MAX_LEVELS} on {device}, got {table.dtype} "
+                         f"{tuple(table.shape)} on {table.device}")
+
+
+def roi_geometry(boxes: torch.Tensor, table: torch.Tensor, n_per_image: int,
+                 resolution: int, sampling_ratio: int, patch: int,
+                 flat: bool):
+    """Every box's patch geometry on the card, one launch for all boxes.
+
+    ``boxes`` (N, 4) float32 CUDA, image i // ``n_per_image`` each;
+    ``table`` the (L, 9) int64 level table (``TABLE_COLUMNS``).  Returns,
+    in this order: img, levels, oy, ox_al (N,) int64; sy, sx_al (N, R*S)
+    float32; valid_y, valid_x (N, R*S) bool; ay (N, R, patch) and ax
+    (N, R, patch+8) float32; overflow (N,) bool; prio (N,) float32 (2 where
+    the box overflows, else 0); and the window index: with ``flat`` K1's
+    (2, N) int32 [rows; cols], else K5's (N, 3) int32 meta.  Raises for a
+    tensor that is not on the card: the plain version is
+    ``ops.roi_align._box_geometry``."""
+    dev = boxes.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if (boxes.dtype != torch.float32 or boxes.dim() != 2
+            or boxes.shape[1] != 4 or not boxes.is_contiguous()):
+        raise ValueError(f"boxes must be contiguous float32 (N, 4), got "
+                         f"{boxes.dtype} {tuple(boxes.shape)}")
+    _check_table(table, dev)
+    n = boxes.shape[0]
+    if n_per_image < 1 or n % n_per_image or sampling_ratio < 1 \
+            or resolution < 1 or patch < 1:
+        raise ValueError(f"{n} boxes in images of {n_per_image}, resolution "
+                         f"{resolution}, sampling ratio {sampling_ratio}, "
+                         f"patch {patch}")
+    rs = resolution * sampling_ratio
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = (empty(n, torch.int64), empty(n, torch.int64),
+           empty(n, torch.int64), empty(n, torch.int64),
+           empty((n, rs), torch.float32), empty((n, rs), torch.float32),
+           empty((n, rs), torch.bool), empty((n, rs), torch.bool),
+           empty((n, resolution, patch), torch.float32),
+           empty((n, resolution, patch + 8), torch.float32),
+           empty(n, torch.bool), empty(n, torch.float32),
+           empty((2, n) if flat else (n, 3), torch.int32))
+    if n == 0:
+        return out
+    fn = _get_fn("roi_pool_prep", "td_roi_geometry")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(boxes.data_ptr(), table.data_ptr(), table.shape[0], n,
+                n_per_image, resolution, sampling_ratio, patch, int(flat),
+                *[t.data_ptr() for t in out], stream)
+    if rc != 0:
+        raise RuntimeError(f"td_roi_geometry failed with CUDA error {rc}")
+    _count("launches_geometry")
+    return out
+
+
+def roi_exact_tail(buffers: Sequence[torch.Tensor], flat: bool,
+                   table: torch.Tensor, boxes: torch.Tensor,
+                   flag: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
+                   sel, resolution: int, sampling_ratio: int) -> None:
+    """Pool exactly, on the card, the boxes a per-image top-k picked, into
+    ``out`` in place.
+
+    Box ``b * N + idx[b, j]`` (N = boxes per image) is pooled where
+    ``flag[b, j] > 0``: its (R, R, C) row of ``out`` (B*N, R, R, C) is
+    overwritten and ``sel[box]`` (a (B*N,) bool tensor, or None) set; other
+    rows are left alone.  ``idx`` (B, m) int64 and ``flag`` (B, m) float32
+    need unit stride along m only (a top-k's slices, or an expanded
+    ``arange`` for every box).  ``buffers``: K1's buffer with ``flat``,
+    else the per-level buffers of K5 and K6; ``table`` the level table;
+    ``boxes`` (B*N, 4) float32 (each box's level is found again, as the
+    geometry found it).  Raises for a tensor that is not on the card: the plain
+    version is ``ops.roi_align._exact_tail_reference``."""
+    first = buffers[0]
+    dev = first.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if first.dtype not in _DTYPE_CODE:
+        raise TypeError(f"features must be float32 or bfloat16, got "
+                        f"{first.dtype}")
+    if not 1 <= len(buffers) <= MAX_LEVELS or (flat and len(buffers) != 1):
+        raise ValueError(f"{len(buffers)} feature buffers")
+    c = first.shape[-1]
+    for f in buffers:
+        if (f.dim() != 3 or f.dtype != first.dtype or f.shape[-1] != c
+                or not f.is_contiguous() or f.device != dev):
+            raise ValueError("feature buffers must be contiguous (rows, W, "
+                             "C) tensors of one dtype, C and device")
+    _check_table(table, dev)
+    if not flat and len(buffers) != table.shape[0]:
+        raise ValueError(f"{len(buffers)} level buffers for "
+                         f"{table.shape[0]} levels")
+    b, m = idx.shape
+    n_boxes = boxes.shape[0]
+    checks = [(boxes, torch.float32, (n_boxes, 4)),
+              (out, first.dtype, (n_boxes, resolution, resolution, c))]
+    if sel is not None:
+        checks.append((sel, torch.bool, (n_boxes,)))
+    for t, dtype, shape in checks:
+        if (t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.device != dev):
+            raise ValueError(f"expected a contiguous {dtype} {shape} tensor "
+                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    for t, dtype in ((idx, torch.int64), (flag, torch.float32)):
+        if (t.dtype != dtype or tuple(t.shape) != (b, m) or t.device != dev
+                or (m > 1 and t.stride(1) != 1)):
+            raise ValueError(f"idx and flag must be int64 and float32 (B, m) "
+                             f"with unit stride along m, got {t.dtype} "
+                             f"{tuple(t.shape)} {t.stride()}")
+    if b < 1 or n_boxes % b or sampling_ratio < 1 or resolution < 1:
+        raise ValueError(f"{n_boxes} boxes in {b} images, resolution "
+                         f"{resolution}, sampling ratio {sampling_ratio}")
+    if b * m == 0:
+        return
+    fn = _get_fn("roi_pool_prep", "td_roi_exact_tail")
+    ptrs = (ctypes.c_void_p * MAX_LEVELS)(
+        *[f.data_ptr() for f in buffers],
+        *[None] * (MAX_LEVELS - len(buffers)))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(ptrs, table.data_ptr(), table.shape[0], int(flat),
+                boxes.data_ptr(), idx.data_ptr(),
+                idx.stride(0), flag.data_ptr(), flag.stride(0), b, m,
+                n_boxes // b, resolution, sampling_ratio, c,
+                _DTYPE_CODE[first.dtype], out.data_ptr(),
+                0 if sel is None else sel.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"td_roi_exact_tail failed with CUDA error {rc}")
+    _count("launches_exact_tail")

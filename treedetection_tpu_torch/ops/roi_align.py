@@ -37,15 +37,16 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+import threading
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from treedetection_tpu_torch.config import LOGGER_NAME
 from treedetection_tpu_torch.ops.kernels.roi_align import (
-    resident_geometry, resident_l2_budget, resident_section_bytes,
-    roi_pool_patches, roi_pool_patches_flat, roi_pool_resident)
+    TABLE_COLUMNS, resident_l2_budget, resident_section_bytes, roi_exact_tail,
+    roi_geometry, roi_pool_patches, roi_pool_patches_flat, roi_pool_resident)
 from treedetection_tpu_torch.ops.nms import stable_topk
 from treedetection_tpu_torch.utils.profiling import span
 
@@ -208,19 +209,77 @@ def _h2d(make, values, **kwargs) -> torch.Tensor:
         return make(values, **kwargs)
 
 
-def _patch_pool_prep(flat_boxes: torch.Tensor, hs: np.ndarray, ws: np.ndarray,
-                     strides: Sequence[int], resolution: int,
-                     sampling_ratio: int, n_levels: int):
+class LevelTable(NamedTuple):
+    """The per-level constants of one pooling geometry on the device: one
+    row per FPN level, ``TABLE_COLUMNS`` in ``packed`` (what the kernels
+    read), each column also a view of it."""
+    packed: torch.Tensor      # (L, 9) int64
+    h: torch.Tensor           # level height
+    w: torch.Tensor           # level width
+    hp: torch.Tensor          # h + PATCH: rows of one image's section
+    lvl_base: torch.Tensor    # first kcat row of the level's sections (K1)
+    flat_pitch: torch.Tensor  # kcat's width, max w + CPATCH (K1)
+    level_pitch: torch.Tensor  # w + CPATCH: the level buffer's width (K5, K6)
+    stride: torch.Tensor
+    max_r0: torch.Tensor      # K6's largest window row origin
+    max_c0: torch.Tensor      # K6's largest window column origin
+    hs: np.ndarray            # (L,) host copies of h and w
+    ws: np.ndarray
+    n_images: int
+
+
+_TABLES: Dict[tuple, LevelTable] = {}
+_TABLES_LOCK = threading.Lock()
+
+
+def level_table(hs, ws, strides: Sequence[int], n_images: int,
+                device) -> LevelTable:
+    """The level table of levels ``hs`` x ``ws`` at ``strides`` for a batch
+    of ``n_images`` on ``device``, copied to the device once per key and
+    kept: the pooler then reads its level geometry with no copy from the
+    host.  A device thread per device may ask at once."""
+    hs = np.asarray(hs, dtype=np.int64)
+    ws = np.asarray(ws, dtype=np.int64)
+    strides = np.asarray(strides[:len(hs)], dtype=np.int64)
+    device = torch.device(device)
+    key = (tuple(hs.tolist()), tuple(ws.tolist()), tuple(strides.tolist()),
+           int(n_images), device)
+    table = _TABLES.get(key)
+    if table is not None:
+        return table
+    with _TABLES_LOCK:
+        table = _TABLES.get(key)
+        if table is None:
+            sec_rows = (hs + PATCH) * n_images
+            columns = {
+                "h": hs, "w": ws, "hp": hs + PATCH,
+                "lvl_base": np.concatenate([[0], np.cumsum(sec_rows)[:-1]]),
+                "flat_pitch": np.full_like(hs, ws.max() + CPATCH),
+                "level_pitch": ws + CPATCH, "stride": strides,
+                "max_r0": np.maximum(hs - PATCH, 0),
+                "max_c0": np.maximum(ws - CPATCH, 0)}
+            host = np.stack([columns[c] for c in TABLE_COLUMNS], axis=1)
+            packed = _h2d(torch.as_tensor, host.astype(np.int64),
+                          device=device)
+            table = _TABLES[key] = LevelTable(
+                packed, *packed.unbind(1), hs=hs, ws=ws,
+                n_images=int(n_images))
+    return table
+
+
+def _patch_pool_prep(flat_boxes: torch.Tensor, table: LevelTable,
+                     resolution: int, sampling_ratio: int):
     """Per-box patch geometry: FPN level, clamped patch origin, and
     patch-relative sample coords with ROIAlign edge semantics.
 
     -> (levels, oy, ox, sy, sx, valid_y, valid_x)
     """
     dev, dt = flat_boxes.device, flat_boxes.dtype
-    levels = assign_fpn_levels(flat_boxes, min_level=2, max_level=1 + n_levels)
-    scale = (1.0 / _h2d(torch.tensor, strides, dtype=dt, device=dev))[levels]
-    h_l = _h2d(torch.as_tensor, hs, device=dev)[levels]
-    w_l = _h2d(torch.as_tensor, ws, device=dev)[levels]
+    levels = assign_fpn_levels(flat_boxes, min_level=2,
+                               max_level=1 + len(table.hs))
+    scale = (1.0 / table.stride.to(dt))[levels]
+    h_l = table.h[levels]
+    w_l = table.w[levels]
 
     sboxes = flat_boxes * scale[:, None]
     x0 = sboxes[:, 0] - 0.5
@@ -267,28 +326,28 @@ def _fold_hats(sy: torch.Tensor, sx: torch.Tensor, valid_y: torch.Tensor,
     return ay, ax
 
 
-def _gather_rows_core(flat: torch.Tensor, bases: np.ndarray, wps: np.ndarray,
-                      hs: np.ndarray, ws: np.ndarray, boxes: torch.Tensor,
-                      levels: torch.Tensor, img: torch.Tensor,
-                      resolution: int, strides: Sequence[int],
+def _gather_rows_core(flat: torch.Tensor, bases: torch.Tensor,
+                      pitches: torch.Tensor, table: LevelTable,
+                      boxes: torch.Tensor, levels: torch.Tensor,
+                      img: torch.Tensor, resolution: int,
                       sampling_ratio: int) -> torch.Tensor:
     """Exact gather ROIAlign of M (box, level, image) triples against the
     flattened (rows*cols, C) buffer -> (M, R, R, C) float32.
 
-    ``bases``: (L,) flat-element base of level l's section; ``wps``: (L,)
-    row pitch in elements.
+    ``bases``: (L,) flat-element base of level l's section; ``pitches``:
+    (L,) row pitch in elements; image ``img`` of level l starts
+    ``img * table.hp[l]`` rows further.  All on the boxes' device.
     """
     dev, dt = boxes.device, boxes.dtype
     c = flat.shape[-1]
-    hps = np.asarray(hs) + PATCH
 
     def per_box(values):
-        return _h2d(torch.as_tensor, np.asarray(values), device=dev)[levels][
-            :, None, None, None, None]
+        return values[levels][:, None, None, None, None]
 
-    scales = 1.0 / _h2d(torch.tensor, strides, dtype=dt, device=dev)
+    scales = 1.0 / table.stride.to(dt)
     ys, xs = _sample_grid(boxes, scales[levels], resolution, sampling_ratio)
-    h, w, hp, wp = per_box(hs), per_box(ws), per_box(hps), per_box(wps)
+    h, w, hp, wp = (per_box(table.h), per_box(table.w), per_box(table.hp),
+                    per_box(pitches))
     base = per_box(bases) + (img[:, None, None, None, None] * hp) * wp
     hf = h.to(dt)
     wf = w.to(dt)
@@ -314,23 +373,6 @@ def _gather_rows_core(flat: torch.Tensor, bases: np.ndarray, wps: np.ndarray,
     return out.mean(dim=(3, 4))
 
 
-def _gather_batched_rows(kpadded: Sequence[torch.Tensor], hs: np.ndarray,
-                         ws: np.ndarray, boxes: torch.Tensor,
-                         levels: torch.Tensor, img: torch.Tensor,
-                         resolution: int, strides: Sequence[int],
-                         sampling_ratio: int) -> torch.Tensor:
-    """Exact gather ROIAlign of M (box, level, image) triples against the
-    per-level row-concatenated buffers: the flat row index gains the image's
-    row base ``img * (H_l + PATCH)`` and the level's padded width."""
-    c = kpadded[0].shape[-1]
-    flat = torch.cat([k.reshape(-1, c) for k in kpadded], dim=0)
-    sizes = np.asarray([k.shape[0] * k.shape[1] for k in kpadded])
-    bases = np.concatenate([[0], np.cumsum(sizes)[:-1]])
-    return _gather_rows_core(flat, bases, np.asarray(ws) + CPATCH, hs, ws,
-                             boxes, levels, img, resolution, strides,
-                             sampling_ratio)
-
-
 def multilevel_roi_align_gather(fmaps: Sequence[torch.Tensor],
                                 boxes: torch.Tensor, resolution: int,
                                 strides: Sequence[int],
@@ -340,14 +382,15 @@ def multilevel_roi_align_gather(fmaps: Sequence[torch.Tensor],
     (N, R, R, C) float32.  Every level is flattened to rows of one
     (sum HW, C) buffer and each bilinear corner is one row gather."""
     c = fmaps[0].shape[-1]
-    hs = np.asarray([f.shape[0] for f in fmaps])
-    ws = np.asarray([f.shape[1] for f in fmaps])
+    table = level_table([f.shape[0] for f in fmaps],
+                        [f.shape[1] for f in fmaps], strides, 1, boxes.device)
     flat = torch.cat([f.reshape(-1, c) for f in fmaps], dim=0)
-    bases = np.concatenate([[0], np.cumsum(hs * ws)[:-1]])
+    sizes = table.h * table.w
     levels = assign_fpn_levels(boxes, min_level=2, max_level=1 + len(fmaps))
     img = torch.zeros_like(levels)
-    return _gather_rows_core(flat, bases, ws, hs, ws, boxes, levels, img,
-                             resolution, strides, sampling_ratio)
+    return _gather_rows_core(flat, torch.cumsum(sizes, 0) - sizes, table.w,
+                             table, boxes, levels, img, resolution,
+                             sampling_ratio)
 
 
 PoolFn = Callable[..., torch.Tensor]
@@ -367,15 +410,18 @@ class BoxGeometry(NamedTuple):
     ay: torch.Tensor          # (N, R, PATCH) float32
     ax: torch.Tensor          # (N, R, CPATCH) float32
     overflow: torch.Tensor    # (N,) bool: samples outspan the 48-row window
+    prio: torch.Tensor        # (N,) float32 exact-tail priority: 2 * overflow
     hs: np.ndarray            # (L,) level heights
     ws: np.ndarray            # (L,) level widths
+    table: LevelTable
 
 
 def _box_geometry(flat_boxes: torch.Tensor, img: torch.Tensor,
-                  hs: np.ndarray, ws: np.ndarray, strides: Sequence[int],
-                  resolution: int, sampling_ratio: int) -> BoxGeometry:
+                  table: LevelTable, resolution: int,
+                  sampling_ratio: int) -> BoxGeometry:
+    """The plain version of the geometry kernel (``roi_geometry``)."""
     levels, oy, ox, sy, sx, valid_y, valid_x = _patch_pool_prep(
-        flat_boxes, hs, ws, strides, resolution, sampling_ratio, len(hs))
+        flat_boxes, table, resolution, sampling_ratio)
     ox_al = (ox // 8) * 8
     sx_al = sx + (ox - ox_al).to(flat_boxes.dtype)[:, None]
     ay, ax = _fold_hats(sy, sx_al, valid_y, valid_x, resolution,
@@ -385,18 +431,47 @@ def _box_geometry(flat_boxes: torch.Tensor, img: torch.Tensor,
     return BoxGeometry(flat_boxes=flat_boxes, img=img, levels=levels, oy=oy,
                        ox_al=ox_al, sy=sy, sx_al=sx_al, valid_y=valid_y,
                        valid_x=valid_x, ay=ay.contiguous(),
-                       ax=ax.contiguous(), overflow=overflow, hs=hs, ws=ws)
+                       ax=ax.contiguous(), overflow=overflow,
+                       prio=overflow.to(torch.float32) * 2.0, hs=table.hs,
+                       ws=table.ws, table=table)
 
 
-def _batched_geometry(fmaps: Sequence[torch.Tensor], boxes: torch.Tensor,
-                      resolution: int, strides: Sequence[int],
-                      sampling_ratio: int) -> BoxGeometry:
+def _window_index(g: BoxGeometry, flat: bool) -> torch.Tensor:
+    """The plain version of the geometry kernel's window index: with
+    ``flat`` K1's (2, N) int32 [absolute window row; column], else K5's
+    (N, 3) int32 meta [level, img*(H_l+PATCH)+oy, ox_al]."""
+    t = g.table
+    row = g.img * t.hp[g.levels] + g.oy
+    if flat:
+        return torch.stack([t.lvl_base[g.levels] + row, g.ox_al]).to(
+            torch.int32)
+    return torch.stack([g.levels, row, g.ox_al], dim=1).to(torch.int32)
+
+
+def box_geometry(boxes: torch.Tensor, table: LevelTable, resolution: int,
+                 sampling_ratio: int, flat: bool
+                 ) -> Tuple[BoxGeometry, torch.Tensor]:
+    """Every box's patch geometry and window index (:func:`_window_index`)
+    of a (B, N, 4) batch: one launch of the geometry kernel on the card,
+    bit-equal to the plain version, which a tensor on the CPU takes."""
     b, n = boxes.shape[0], boxes.shape[1]
+    flat_boxes = boxes.reshape(b * n, 4)
+    if boxes.device.type != "cpu":
+        *fields, index = roi_geometry(flat_boxes.contiguous(), table.packed,
+                                      n, resolution, sampling_ratio, PATCH,
+                                      flat)
+        return BoxGeometry(flat_boxes, *fields, hs=table.hs, ws=table.ws,
+                           table=table), index
     img = torch.arange(b, device=boxes.device).repeat_interleave(n)
-    hs = np.asarray([f.shape[1] for f in fmaps])
-    ws = np.asarray([f.shape[2] for f in fmaps])
-    return _box_geometry(boxes.reshape(b * n, 4), img, hs, ws, strides,
-                         resolution, sampling_ratio)
+    g = _box_geometry(flat_boxes, img, table, resolution, sampling_ratio)
+    return g, _window_index(g, flat)
+
+
+def _batched_table(fmaps: Sequence[torch.Tensor], boxes: torch.Tensor,
+                   strides: Sequence[int]) -> LevelTable:
+    return level_table([f.shape[1] for f in fmaps],
+                       [f.shape[2] for f in fmaps], strides, boxes.shape[0],
+                       boxes.device)
 
 
 class FlatPoolInputs(NamedTuple):
@@ -423,8 +498,9 @@ def flat_pool_inputs(fmaps: Sequence[torch.Tensor], boxes: torch.Tensor,
     and hat matrices (see :func:`multilevel_roi_align_batched`)."""
     b = boxes.shape[0]
     c = fmaps[0].shape[-1]
-    dev = boxes.device
-    g = _batched_geometry(fmaps, boxes, resolution, strides, sampling_ratio)
+    table = _batched_table(fmaps, boxes, strides)
+    g, index = box_geometry(boxes, table, resolution, sampling_ratio,
+                            flat=True)
     hs, ws = g.hs, g.ws
 
     # ONE uniform-width buffer for every (level, image) section: image b of
@@ -434,18 +510,13 @@ def flat_pool_inputs(fmaps: Sequence[torch.Tensor], boxes: torch.Tensor,
     sec_rows = (hs + PATCH) * b
     lvl_base = np.concatenate([[0], np.cumsum(sec_rows)[:-1]])
     kcat = torch.zeros((int(sec_rows.sum()), wmax, c), dtype=fmaps[0].dtype,
-                       device=dev)
+                       device=boxes.device)
     for l, f in enumerate(fmaps):
         h, w = int(hs[l]), int(ws[l])
         sec = kcat[int(lvl_base[l]):int(lvl_base[l] + sec_rows[l])]
         sec.view(b, h + PATCH, wmax, c)[:, :h, :w] = f
-
-    row_base = g.img * _h2d(torch.as_tensor, hs + PATCH, device=dev)[g.levels]
-    abs_row = (_h2d(torch.as_tensor, lvl_base, device=dev)[g.levels]
-               + row_base + g.oy)
-    return FlatPoolInputs(
-        kcat=kcat, rows=abs_row.to(torch.int32).contiguous(),
-        cols=g.ox_al.to(torch.int32).contiguous(), lvl_base=lvl_base, geom=g)
+    return FlatPoolInputs(kcat=kcat, rows=index[0], cols=index[1],
+                          lvl_base=lvl_base, geom=g)
 
 
 class LevelPoolInputs(NamedTuple):
@@ -471,20 +542,66 @@ def level_pool_inputs(fmaps: Sequence[torch.Tensor], boxes: torch.Tensor,
     and every box's ``meta`` row and hat matrices."""
     b = boxes.shape[0]
     c = fmaps[0].shape[-1]
-    dev = boxes.device
-    g = _batched_geometry(fmaps, boxes, resolution, strides, sampling_ratio)
+    table = _batched_table(fmaps, boxes, strides)
+    g, meta = box_geometry(boxes, table, resolution, sampling_ratio,
+                           flat=False)
     kpadded = []
     for l, f in enumerate(fmaps):
         h, w = int(g.hs[l]), int(g.ws[l])
         buf = torch.zeros((b * (h + PATCH), w + CPATCH, c), dtype=f.dtype,
-                          device=dev)
+                          device=boxes.device)
         buf.view(b, h + PATCH, w + CPATCH, c)[:, :h, :w] = f
         kpadded.append(buf)
-    row_base = g.img * _h2d(torch.as_tensor, g.hs + PATCH,
-                            device=dev)[g.levels]
-    meta = torch.stack([g.levels, row_base + g.oy, g.ox_al], dim=1)
-    return LevelPoolInputs(kpadded=tuple(kpadded),
-                           meta=meta.to(torch.int32).contiguous(), geom=g)
+    return LevelPoolInputs(kpadded=tuple(kpadded), meta=meta, geom=g)
+
+
+def _exact_tail_reference(buffers: Sequence[torch.Tensor], flat: bool,
+                          g: BoxGeometry, flag: torch.Tensor,
+                          idx: torch.Tensor, out: torch.Tensor,
+                          sel: Optional[torch.Tensor], resolution: int,
+                          sampling_ratio: int) -> None:
+    """The plain version of the exact-tail kernel (``roi_exact_tail``): the
+    boxes ``b * N + idx[b, j]`` of the (B, m) top-k pooled through
+    :func:`_gather_rows_core` from the layout's buffers, written into
+    ``out`` and ``sel`` where ``flag > 0``."""
+    b = idx.shape[0]
+    n = g.levels.shape[0] // b
+    t = g.table
+    c = buffers[0].shape[-1]
+    rows = (torch.arange(b, device=idx.device)[:, None] * n + idx).reshape(-1)
+    take = (flag > 0).reshape(-1)
+    if flat:
+        src, pitches = buffers[0].reshape(-1, c), t.flat_pitch
+        bases = t.lvl_base * t.flat_pitch
+    else:
+        src, pitches = torch.cat([k.reshape(-1, c) for k in buffers]), \
+            t.level_pitch
+        sizes = t.n_images * t.hp * t.level_pitch
+        bases = torch.cumsum(sizes, 0) - sizes
+    fb = _gather_rows_core(src, bases, pitches, t, g.flat_boxes[rows],
+                           g.levels[rows], g.img[rows], resolution,
+                           sampling_ratio)
+    out[rows] = torch.where(take[:, None, None, None], fb.to(out.dtype),
+                            out[rows])
+    if sel is not None:
+        sel[rows] = take
+
+
+def exact_tail(buffers: Sequence[torch.Tensor], flat: bool, g: BoxGeometry,
+               flag: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
+               sel: Optional[torch.Tensor], resolution: int,
+               sampling_ratio: int) -> None:
+    """Re-pool exactly, in place, the boxes that a per-image (B, m) top-k
+    ``(flag, idx)`` picked (those with ``flag > 0``): their rows of ``out``
+    (B*N, R, R, C) and their ``sel`` flags.  ``buffers``: K1's buffer with
+    ``flat``, else the per-level buffers.  One launch of the exact-tail
+    kernel on the card; a tensor on the CPU takes the plain version."""
+    if out.device.type != "cpu":
+        roi_exact_tail(buffers, flat, g.table.packed, g.flat_boxes, flag,
+                       idx, out, sel, resolution, sampling_ratio)
+    else:
+        _exact_tail_reference(buffers, flat, g, flag, idx, out, sel,
+                              resolution, sampling_ratio)
 
 
 class ResidentPoolInputs(NamedTuple):
@@ -526,24 +643,19 @@ def resident_pool_inputs(p: LevelPoolInputs, resolution: int,
                          chunk: Optional[int] = None,
                          c_split: Optional[int] = None) -> ResidentPoolInputs:
     """From the per-level inputs to the resident pooler's: clamp the window
-    origins into the unpadded sections ((max(H_l, PATCH), max(W_l, CPATCH)),
-    from the buffers' shapes), shift the patch-relative sample coordinates
-    by the clamp and fold the hat matrices again (a clamped window still
-    holds the whole in-image span of a fitting box), then pad each image's
-    boxes to a multiple of ``chunk`` with zero hats and ``meta`` 0."""
+    origins into the unpadded sections ((max(H_l, PATCH), max(W_l, CPATCH)):
+    the level table's ``max_r0``, ``max_c0``), shift the patch-relative
+    sample coordinates by the clamp and fold the hat matrices again (a
+    clamped window still holds the whole in-image span of a fitting box),
+    then pad each image's boxes to a multiple of ``chunk`` with zero hats
+    and ``meta`` 0."""
     g = p.geom
-    dev = g.levels.device
     n = g.levels.shape[0]
     n_per = n // n_images
     if c_split is None:
         c_split = resident_c_split(p.kpadded, n_images)
-    _, sec_hs, sec_ws = resident_geometry(p.kpadded, n_images, PATCH)
-    max_r0 = _h2d(torch.tensor, [h - PATCH for h in sec_hs],
-                  device=dev)[g.levels]
-    max_c0 = _h2d(torch.tensor, [w - CPATCH for w in sec_ws],
-                  device=dev)[g.levels]
-    r0 = torch.minimum(g.oy, max_r0)
-    c0 = torch.minimum(g.ox_al, max_c0)
+    r0 = torch.minimum(g.oy, g.table.max_r0[g.levels])
+    c0 = torch.minimum(g.ox_al, g.table.max_c0[g.levels])
     sy2 = g.sy + (g.oy - r0).to(g.sy.dtype)[:, None]
     sx2 = g.sx_al + (g.ox_al - c0).to(g.sx_al.dtype)[:, None]
     ay, ax = _fold_hats(sy2, sx2, g.valid_y, g.valid_x, resolution,
@@ -591,15 +703,16 @@ def pooler_layout() -> str:
 def pooler_libraries() -> Tuple[str, ...]:
     """The kernel libraries (``ops.kernels.roi_align.build`` names) that
     ``multilevel_roi_align_batched`` launches on the card under the layout
-    the environment selects now: the resident layout pools a small patch
-    class, where ``TD_ROI_SMALL`` turns one on, through K5."""
+    the environment selects now: the geometry and exact-tail kernels and the
+    layout's pooler; the resident layout pools a small patch class, where
+    ``TD_ROI_SMALL`` turns one on, through K5."""
     layout = pooler_layout()
     if layout == "flat":
-        return ("roi_pool_flat",)
+        return ("roi_pool_prep", "roi_pool_flat")
     if layout == "levels" or not any(     # the box and the mask pool
             _class_params(1, r)[0] for r in (7, 14)):
-        return (f"roi_pool_{layout}",)
-    return ("roi_pool_resident", "roi_pool_levels")
+        return ("roi_pool_prep", f"roi_pool_{layout}")
+    return ("roi_pool_prep", "roi_pool_resident", "roi_pool_levels")
 
 
 def multilevel_roi_align_batched(fmaps: Sequence[torch.Tensor],
@@ -626,7 +739,11 @@ def multilevel_roi_align_batched(fmaps: Sequence[torch.Tensor],
     exactly through the gather tail, highest-scoring first, up to their
     per-image budget.  The rest stay truncated and are flagged.
     Geometries whose boxes could outspan the patch on every level pool every
-    box through the gather path.
+    box through the gather path.  On the card the geometry and the gather
+    tail are one kernel launch each (:func:`box_geometry`,
+    :func:`exact_tail`) and the level geometry stays on the device
+    (:func:`level_table`), so a call copies nothing from the host and waits
+    for nothing.
     """
     b, n = boxes.shape[0], boxes.shape[1]
     c = fmaps[0].shape[-1]
@@ -642,24 +759,18 @@ def multilevel_roi_align_batched(fmaps: Sequence[torch.Tensor],
         pool = roi_pool_patches_flat if pool is None else pool
         p = flat_pool_inputs(fmaps, boxes, resolution, strides, sampling_ratio)
         g = p.geom
-        wmax = p.kcat.shape[1]
+        buffers = (p.kcat,)
 
         def launch(sel, patch):
             return pool(p.kcat, p.rows[sel], p.cols[sel],
                         g.ay[sel][:, :, :patch].contiguous(),
                         g.ax[sel][:, :, :patch + 8].contiguous(), resolution,
                         patch)
-
-        def gather(sel):
-            return _gather_rows_core(
-                p.kcat.reshape(-1, c), p.lvl_base * wmax,
-                np.full(len(fmaps), wmax), g.hs, g.ws, g.flat_boxes[sel],
-                g.levels[sel], g.img[sel], resolution, strides,
-                sampling_ratio)
     else:
         p = level_pool_inputs(fmaps, boxes, resolution, strides,
                               sampling_ratio)
         g = p.geom
+        buffers = p.kpadded
 
         def launch(sel, patch):
             return roi_pool_patches(
@@ -667,15 +778,17 @@ def multilevel_roi_align_batched(fmaps: Sequence[torch.Tensor],
                 g.ay[sel][:, :, :patch].contiguous(),
                 g.ax[sel][:, :, :patch + 8].contiguous(), resolution, patch)
 
-        def gather(sel):
-            return _gather_batched_rows(
-                p.kpadded, g.hs, g.ws, g.flat_boxes[sel], g.levels[sel],
-                g.img[sel], resolution, strides, sampling_ratio)
+    def exact(out, flag, idx, sel=None):
+        exact_tail(buffers, flat_layout, g, flag, idx, out, sel, resolution,
+                   sampling_ratio)
 
     everything = slice(None)
     img_span = max(int(h) * s for h, s in zip(g.hs, strides))
     if img_span / strides[-1] > PATCH - 2:
-        out = gather(everything).to(fmaps[0].dtype)
+        out = torch.empty((b * n, resolution, resolution, c),
+                          dtype=fmaps[0].dtype, device=dev)
+        exact(out, torch.ones(n, device=dev).expand(b, n),
+              torch.arange(n, device=dev).expand(b, n))
         return (out.reshape(b, n, resolution, resolution, c),
                 torch.zeros((b, n), dtype=torch.bool, device=dev))
 
@@ -683,45 +796,39 @@ def multilevel_roi_align_batched(fmaps: Sequence[torch.Tensor],
     # the hat matrices IS the small-patch pooling
     small, m_large, m_exact = _class_params(n, resolution)
     need_exact = g.overflow.reshape(b, n)      # outspans even the 48-patch
+    inexact = need_exact.reshape(-1)
+    prio = g.prio.reshape(b, n)
     if small:
         fits_small = ~((g.sy.amax(dim=1) > small - 1)
                        | (g.sx_al.amax(dim=1) > small + 8 - 1))
         need_large = ~fits_small.reshape(b, n) & ~need_exact
         out = launch(everything, small)
-    else:
-        need_large = torch.zeros((b, n), dtype=torch.bool, device=dev)
-        if use_resident:
-            out = _launch_resident_kernel(p, resolution, sampling_ratio, b)
-        else:
-            out = launch(everything, PATCH)
-
-    img_base = torch.arange(b, device=dev)[:, None] * n
-    sel_large = torch.zeros(b * n, dtype=torch.bool, device=dev)
-    if small and m_large > 0:
-        flag_l, idx_l = stable_topk(need_large.to(torch.float32), m_large)
-        flat_l = (img_base + idx_l).reshape(-1)
-        take_l = (flag_l > 0).reshape(-1)
-        out_l = launch(flat_l, PATCH)
-        out[flat_l] = torch.where(take_l[:, None, None, None],
-                                  out_l.to(out.dtype), out[flat_l])
-        sel_large[flat_l] = take_l
-
-    sel_exact = torch.zeros(b * n, dtype=torch.bool, device=dev)
-    if m_exact > 0:
+        sel_large = torch.zeros(b * n, dtype=torch.bool, device=dev)
+        if m_large > 0:
+            img_base = torch.arange(b, device=dev)[:, None] * n
+            flag_l, idx_l = stable_topk(need_large.to(torch.float32), m_large)
+            flat_l = (img_base + idx_l).reshape(-1)
+            take_l = (flag_l > 0).reshape(-1)
+            out_l = launch(flat_l, PATCH)
+            out[flat_l] = torch.where(take_l[:, None, None, None],
+                                      out_l.to(out.dtype), out[flat_l])
+            sel_large[flat_l] = take_l
         # beyond-48 boxes first, then class-2 spillover the large budget
-        # missed; ties break toward lower index == higher proposal score
+        # missed
         prio = (need_exact.to(torch.float32) * 2.0
                 + (need_large & ~sel_large.reshape(b, n)).to(torch.float32))
-        flag_e, idx_e = stable_topk(prio, m_exact)
-        flat_e = (img_base + idx_e).reshape(-1)
-        take_e = (flag_e > 0).reshape(-1)
-        fb = gather(flat_e)
-        out[flat_e] = torch.where(take_e[:, None, None, None],
-                                  fb.to(out.dtype), out[flat_e])
-        sel_exact[flat_e] = take_e
+        inexact = (inexact | need_large.reshape(-1)) & ~sel_large
+    elif use_resident:
+        out = _launch_resident_kernel(p, resolution, sampling_ratio, b)
+    else:
+        out = launch(everything, PATCH)
 
-    inexact = ((need_large | need_exact).reshape(-1)
-               & ~sel_large & ~sel_exact)
+    if m_exact > 0:
+        # ties break toward lower index == higher proposal score
+        flag_e, idx_e = stable_topk(prio, m_exact)
+        sel_exact = torch.zeros(b * n, dtype=torch.bool, device=dev)
+        exact(out, flag_e, idx_e, sel_exact)
+        inexact = inexact & ~sel_exact
     return (out.reshape(b, n, resolution, resolution, c),
             inexact.reshape(b, n))
 
@@ -746,7 +853,8 @@ def _window_pool_differentiable(fmaps: Sequence[torch.Tensor],
     wps = ws + PATCH
     bases = np.concatenate([[0], np.cumsum((hs + PATCH) * wps)[:-1]])
     levels, oy, ox, sy, sx, valid_y, valid_x = _patch_pool_prep(
-        boxes, hs, ws, strides, resolution, sampling_ratio, len(fmaps))
+        boxes, level_table(hs, ws, strides, 1, dev), resolution,
+        sampling_ratio)
     overflow = (sy.amax(dim=1) > PATCH - 1) | (sx.amax(dim=1) > PATCH - 1)
     ay, ax = _fold_hats(sy, sx, valid_y, valid_x, resolution, sampling_ratio,
                         PATCH)
