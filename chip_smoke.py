@@ -13,7 +13,7 @@ pipeline_two_model,bench,train,train_sharded,eval,autolabel,trace:
                helpers), all compilers started together; prints each
                kernel's ``ptxas`` lines (registers, spills and shared memory
                of the bf16 kernels of K1, K5 and K6, all ``pool_box_bf16``,
-               which must not spill).
+               which must not spill, and of ViTDet's attention kernel).
 2. kernel    — K1, K5 and K6 (the flat, per-level and image-resident
                ROIAlign patch poolers; K6 at c_split 1 and 2) against their
                plain PyTorch versions and against each other on the same
@@ -42,7 +42,16 @@ pipeline_two_model,bench,train,train_sharded,eval,autolabel,trace:
                exact-tail kernel against its plain version within the
                pooler's tolerance (mixed take flags, and every box), each
                timed alone and through its wrapper with its launches, and
-               one pooling call's host time and launches.
+               one pooling call's host time and launches; ViTDet's
+               attention kernel (``relpos_attention``) at the
+               ``vitdet_l_tile_stream`` cell's shapes (batch 10, 64 x 64
+               tokens, 16 heads of 64, bf16: 14 x 14 windows with their pad
+               keys and the global block), its output against the plain
+               version in float32 on the same bf16 inputs (the kernel
+               rounds p to bf16 before p.v and the output once), its card,
+               alone and plain milliseconds, its bound, and as a yardstick
+               only ``F.scaled_dot_product_attention`` with the bias
+               materialised (``library_ms``; the port never calls it).
 3. predictor — the port's Predictor (R50-FPN, 1024^2, batch 10, 512
                proposals, bf16) on a synthetic 1000x1000 px RGBI GeoTIFF
                tiled into 16 tiles: a first pass, then a timed pass with the
@@ -155,7 +164,11 @@ pipeline_two_model,bench,train,train_sharded,eval,autolabel,trace:
                ``record_function``, makes no CUDA event beyond the arrival
                events, no sync that tracing on does not count, and records
                nothing.  The benchmark's ``syncs_per_batch`` and
-               ``sync_wait_ms`` read those spans.
+               ``sync_wait_ms`` read those spans.  Then the same on the
+               ``vitdet_l_tile_stream`` cell (the flat layout): a served
+               ViTDet-L batch launches the attention kernel 20 times for
+               the windowed blocks and 4 times for the global ones, and no
+               sync of the device thread lies inside a ``vit.*`` span.
 11. kernels  — the per-kernel summary line, then the card's name and power
                limit, then the final status line.
 
@@ -272,6 +285,7 @@ def _roi_launches(k):
 def phase_build(state):
     from treedetection_tpu_torch import native
     from treedetection_tpu_torch.ops.kernels import pairwise as k234
+    from treedetection_tpu_torch.ops.kernels import relpos_attention as ra
     from treedetection_tpu_torch.ops.kernels import roi_align as k1
     results, errors = {}, {}
 
@@ -284,7 +298,8 @@ def phase_build(state):
 
     t0 = time.time()
     jobs = [(name, lambda name=name: k1.build(name)) for name in ROI_LIBRARIES]
-    jobs += [("pairwise_boxes", k234.build), ("td_native", native.build)]
+    jobs += [("pairwise_boxes", k234.build), ("td_native", native.build),
+             ("relpos_attention", ra.build)]
     threads = [threading.Thread(target=run, args=job) for job in jobs]
     for t in threads:
         t.start()
@@ -293,7 +308,7 @@ def phase_build(state):
     if errors:
         fail(f"build: {errors}")
     ptxas = {}
-    for name in ROI_LIBRARIES + ("pairwise_boxes",):
+    for name in ROI_LIBRARIES + ("pairwise_boxes", "relpos_attention"):
         log = results[name][0].with_suffix(".log")
         ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
                        if "registers" in ln or "spill" in ln or "smem" in ln]
@@ -321,6 +336,13 @@ def phase_build(state):
           "relation_kernels": relation})
     state["bf16_ptxas"] = bf16_ptxas
     state["relation_ptxas"] = relation
+    state["relpos_ptxas"] = ptxas["relpos_attention"]
+    import re
+    spills = [int(n) for ln in ptxas["relpos_attention"]
+              for n in re.findall(r"(\d+) bytes spill", ln)]
+    if not spills or any(spills):
+        fail(f"build: the attention kernel spills: "
+             f"{ptxas['relpos_attention']}")
     if sorted(relation) != sorted(RELATION_FORMS):
         fail(f"build: relation_kernel instances {sorted(relation)}, "
              f"expected {sorted(RELATION_FORMS)}")
@@ -762,6 +784,135 @@ def phase_kernel(state):
 
 GEOMETRY_FIELDS = ("img", "levels", "oy", "ox_al", "sy", "sx_al", "valid_y",
                    "valid_x", "ay", "ax", "overflow", "prio")
+
+
+# --- ViTDet's attention kernel -----------------------------------------------
+
+# the vitdet_l_tile_stream cell's shapes: batch 10, 1024^2 input -> 64 x 64
+# tokens, 16 heads of 64, windows of 14 (20 blocks) or the whole map (4)
+RELPOS_SHAPES = {"batch": 10, "side": 64, "heads": 16, "window": 14,
+                 "blocks": {"window": 20, "global": 4}}
+
+
+def relpos_bound_ms(b, side, heads, sh, sw):
+    """The least time of one launch: the larger of its operations (every
+    real query against its window's Sh * Sw keys for q.k and p.v, and the
+    Sh + Sw table rows) over the bf16 peak and its bytes (q, k, v and the
+    output of the map, the bias, both tables) over the memory's, as the
+    benchmark's ``flops_vitdet.attention_work`` counts them."""
+    n, c = side * side, heads * 64
+    ops = 2 * b * n * c * (2 * sh * sw + sh + sw)
+    nbytes = 2 * (b * n * 4 * c + 3 * c + (2 * sh - 1 + 2 * sw - 1) * 64)
+    t_ops = ops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def _relpos_library(qkv, bias, rh, rw, heads, window):
+    """The yardstick: ``F.scaled_dot_product_attention`` over the windows,
+    the decomposed bias materialised as its mask (bf16)."""
+    import torch
+    import torch.nn.functional as F
+    from treedetection_tpu_torch.ops.kernels.relpos_attention import rel_index
+    b, h, w, c3 = qkv.shape
+    c = c3 // 3
+    s = window or h
+    hp = -(-h // s) * s
+    x = qkv
+    if hp != h:
+        x = bias.expand(b, hp, hp, c3).clone()
+        x[:, :h, :w] = qkv
+    nw = hp // s
+    x = x.reshape(b, nw, s, nw, s, 3, heads, 64).permute(
+        5, 0, 1, 3, 6, 2, 4, 7).reshape(3, b * nw * nw, heads, s * s, 64)
+    q, k, v = x[0], x[1], x[2]
+    idx = rel_index(s, qkv.device)
+    qq = q.reshape(-1, heads, s, s, 64)
+    bh = torch.einsum("nhyxd,ykd->nhyxk", qq, rh[idx])
+    bw = torch.einsum("nhyxd,xkd->nhyxk", qq, rw[idx])
+    mask = (bh[..., :, None] + bw[..., None, :]).reshape(
+        -1, heads, s * s, s * s)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def phase_kernel_relpos(state):
+    """The attention kernel at the ViTDet cell's shapes against its plain
+    version, with its times, bound and launches."""
+    import torch
+    from treedetection_tpu_torch.ops.kernels import relpos_attention as ra
+    sh = RELPOS_SHAPES
+    b, side, heads = sh["batch"], sh["side"], sh["heads"]
+    c = heads * 64
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    rows = {}
+    for kind, window in (("window", sh["window"]), ("global", 0)):
+        s = window or side
+        # q, k entries of std 1.7: logits scale*q.k of std ~3, the bias
+        # terms of std ~1.4, as the cell's calibrated weights give them
+        qkv = (torch.randn(b, side, side, 3 * c, generator=gen,
+                           device="cuda") * 1.7).bfloat16()
+        bias = (torch.randn(3 * c, generator=gen, device="cuda")
+                * 1.7).bfloat16()
+        rh = (torch.randn(2 * s - 1, 64, generator=gen, device="cuda")
+              * 0.1).bfloat16()
+        rw = (torch.randn(2 * s - 1, 64, generator=gen, device="cuda")
+              * 0.1).bfloat16()
+        before = (ra.launches_relpos_window, ra.launches_relpos_global)
+        got = ra.relpos_attention(qkv, bias, rh, rw, heads, window)
+        torch.cuda.synchronize()
+        launched = (ra.launches_relpos_window - before[0],
+                    ra.launches_relpos_global - before[1])
+        # the plain version in float32 on the same bf16 inputs; the global
+        # block's materialised logits on two images of the batch
+        m = b if window else 2
+        plain = ra.relpos_attention_reference(
+            qkv[:m].float(), bias.float(), rh.float(), rw.float(), heads,
+            window)
+        err = (got[:m].float() - plain).abs()
+        scale = float(plain.abs().max())
+        card_ms = _timed_ms(lambda: ra.relpos_attention(
+            qkv, bias, rh, rw, heads, window))
+        alone_ms = _device_ms(lambda: ra.relpos_attention(
+            qkv, bias, rh, rw, heads, window), "relpos_attention_kernel")
+        plain_ms = _timed_ms(lambda: ra.relpos_attention_reference(
+            qkv[:m], bias, rh, rw, heads, window), warmup=1, iters=3)
+        try:
+            library_ms = _timed_ms(lambda: _relpos_library(
+                qkv, bias, rh, rw, heads, window), warmup=1, iters=5)
+        except RuntimeError as exc:     # out of memory: not measured
+            library_ms = None
+            emit({"phase": "kernel", "kernel": "relpos_attention",
+                  "kind": kind, "library_error": repr(exc)[:300]})
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = relpos_bound_ms(b, side, heads, s, s)
+        rows[kind] = {
+            "shape": [b, side, side, heads, 64], "window": window,
+            "launched": launched, "max_abs_err": float(err.max()),
+            "mean_abs_err": float(err.mean()), "out_abs_max": scale,
+            "finite": bool(torch.isfinite(got).all()),
+            "ms": card_ms, "alone_ms": alone_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "plain_ms": plain_ms, "plain_images": m,
+            "library_ms": library_ms, "blocks_per_forward":
+            sh["blocks"][kind]}
+        emit({"phase": "kernel", "kernel": "relpos_attention", "kind": kind,
+              "error_reason": "bf16 q, k, v and tables; p rounded to bf16 "
+                              "before p.v; the output rounded to bf16 once; "
+                              "against the plain version in float32 on the "
+                              "same inputs",
+              **rows[kind]})
+        del qkv, got, plain
+        torch.cuda.empty_cache()
+    state["relpos"] = rows
+    for kind, r in rows.items():
+        want = (1, 0) if kind == "window" else (0, 1)
+        if r["launched"] != want:
+            fail(f"kernel: relpos_attention {kind}: launches {r['launched']},"
+                 f" expected {want}")
+        # bf16 p and output: a few bf16 ulps of the output's largest value
+        if not r["finite"] or r["max_abs_err"] > 0.01 * r["out_abs_max"]:
+            fail(f"kernel: relpos_attention {kind}: {r}")
 
 
 def _geometry_box_sets(rng):
@@ -3501,6 +3652,29 @@ def phase_trace(state):
     if proc.returncode != 0 or verdict is None or not verdict["ok"]:
         fail(f"trace_check: rc {proc.returncode}, "
              f"{verdict['problems'] if verdict else proc.stderr[-2000:]}")
+    # the ViTDet cell: the attention kernel once a block, no sync in the
+    # backbone
+    cmd = [sys.executable, str(REPO / "tools" / "trace_check.py"),
+           "--cell", "vitdet_l_tile_stream", "--parts", "syncs,off",
+           "--layouts", "flat"]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=900)
+    verdict = None
+    for text in proc.stdout.splitlines():
+        if not text.startswith("{"):
+            continue
+        line = json.loads(text)
+        if line.get("part") == "verdict":
+            verdict = line
+        line.pop("sites", None)
+        line.pop("record", None)
+        emit({"phase": "trace", "cell": "vitdet_l_tile_stream", **line})
+    emit({"phase": "trace", "cell": "vitdet_l_tile_stream",
+          "seconds": round(time.time() - t0, 3), "rc": proc.returncode})
+    if proc.returncode != 0 or verdict is None or not verdict["ok"]:
+        fail(f"trace_check (vitdet): rc {proc.returncode}, "
+             f"{verdict['problems'] if verdict else proc.stderr[-2000:]}")
 
 
 def phase_autolabel(state, workdir: Path):
@@ -3795,6 +3969,25 @@ def kernels_line(state):
         "per_call_of": "K2's production row block (8192 x 32768, bit-packed) "
                        "to its pairs",
         "by_mode": pairs})
+    relpos = state.get("relpos")
+    if relpos:
+        per = RELPOS_SHAPES["blocks"]
+        kernels.append({
+            "name": "relpos_attention", "number": "A", "route": "cuda",
+            "source": "treedetection_tpu_torch/csrc/relpos_attention.cu",
+            "replaces": None,
+            "replaces_note": "no TPU kernel: ViTDet's windowed and global "
+                             "attention with decomposed relative positions "
+                             "(the JAX package has no ViT)",
+            "ms": sum(per[k] * relpos[k]["ms"] for k in per),
+            "alone_ms": (sum(per[k] * relpos[k]["alone_ms"] for k in per)
+                         if all(relpos[k]["alone_ms"] for k in per)
+                         else None),
+            "bound_ms": sum(per[k] * relpos[k]["bound_ms"] for k in per),
+            "max_abs_err": max(r["max_abs_err"] for r in relpos.values()),
+            "per_forward_of": "20 windowed + 4 global launches, batch 10, "
+                              "64 x 64 tokens, 16 heads of 64, bf16",
+            "by_kind": relpos, "ptxas": state.get("relpos_ptxas")})
     return {"kernels": kernels}
 
 
@@ -3867,6 +4060,7 @@ def main() -> None:
             phase_kernel(state)
             phase_kernel_prep(state)
             phase_kernel_pairwise(state)
+            phase_kernel_relpos(state)
         if "predictor" in phases:
             phase_predictor(state, work)
             phase_predictor_levels(state, work)

@@ -8,7 +8,8 @@ import shutil
 import pytest
 
 from treedetection_tpu_torch import build
-from treedetection_tpu_torch.ops.kernels import pairwise, roi_align
+from treedetection_tpu_torch.ops.kernels import (
+    pairwise, relpos_attention, roi_align)
 
 CSRC = roi_align._CSRC
 # library -> the headers its source must hash (K1, K5 and K6 share
@@ -19,12 +20,15 @@ LIBRARIES = {
     "roi_pool_resident": {"roi_pool_bf16.cuh", "roi_pool_window.cuh"},
     "roi_pool_prep": set(),
     "pairwise_boxes": set(),
+    "relpos_attention": set(),
 }
 
 
 def test_libraries_cover_every_kernel_source():
     assert {p.stem for p in CSRC.glob("*.cu")} == set(LIBRARIES)
-    assert set(roi_align._ARG_TYPES) | {pairwise._SRC.stem} == set(LIBRARIES)
+    assert set(roi_align._ARG_TYPES) | {pairwise._SRC.stem,
+                                        relpos_attention._SRC.stem} == \
+        set(LIBRARIES)
 
 
 @pytest.mark.parametrize("name", sorted(LIBRARIES))

@@ -307,7 +307,8 @@ def test_port_never_imports_jax_statically():
     sources = sorted((PORT / "csrc").glob("*.cu*")) + \
         sorted((PORT / "native").glob("*.cpp"))
     assert [p.name for p in sources] == [
-        "pairwise_boxes.cu", "roi_pool_bf16.cuh", "roi_pool_flat.cu",
+        "pairwise_boxes.cu", "relpos_attention.cu", "roi_pool_bf16.cuh",
+        "roi_pool_flat.cu",
         "roi_pool_levels.cu", "roi_pool_prep.cu", "roi_pool_resident.cu",
         "roi_pool_window.cuh", "contour.cpp"]
     assert {"compat.py", "cli.py"} <= {f.name for f in files}
@@ -319,7 +320,9 @@ def test_port_never_imports_jax_statically():
 def test_config_defaults_and_model_spec_match_jax(name):
     """The example configs load to the same dict, take the same defaults
     and build the same model spec field for field.  One key differs on
-    purpose: ``device`` names a torch device in the port."""
+    purpose: ``device`` names a torch device in the port.  The port's own
+    fields (the ViTDet backbone, the input order) keep the R-FPN model's
+    values."""
     import dataclasses
     from treedetection_tpu import config as jax_config
     from treedetection_tpu_torch import config as port_config
@@ -332,9 +335,15 @@ def test_config_defaults_and_model_spec_match_jax(name):
             assert filled[key] == raw.get(key, default), key
     ours = port_config.model_spec(filled)
     theirs = jax_config.model_spec(filled)
+    shared = {f.name for f in dataclasses.fields(theirs)}
     for field in dataclasses.fields(ours):
-        assert getattr(ours, field.name) == getattr(theirs, field.name), \
-            field.name
+        if field.name in shared:
+            assert getattr(ours, field.name) == getattr(theirs,
+                                                        field.name), \
+                field.name
+        else:
+            assert getattr(ours, field.name) == field.default, field.name
+    assert (ours.backbone, ours.input_format) == ("resnet", "BGR")
 
 
 def test_device_selection():

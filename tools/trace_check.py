@@ -1,8 +1,10 @@
 """Checks of the serving path's spans (``utils.profiling``) on the card, on
-the benchmark's ``r101_tile_stream`` cell (its seeded weights and tiles):
+a benchmark cell (``--cell``, default ``r101_tile_stream``: its seeded
+weights and tiles):
 
-    python3 tools/trace_check.py [--seed N] [--parts syncs,off,chrome]
-        [--layouts flat,levels,resident] [--out DIR]
+    python3 tools/trace_check.py [--cell NAME] [--seed N]
+        [--parts syncs,off,chrome] [--layouts flat,levels,resident]
+        [--out DIR]
 
 ``syncs``: under ``torch.cuda.set_sync_debug_mode("warn")``, served batches
 with tracing on: every synchronizing call of the device thread, its site,
@@ -22,7 +24,10 @@ batch record's sync count differs from the syncs seen, when a served batch
 copies level geometry to the card (``sync.pool_h2d``) or checks K1's columns
 on the host (``sync.k1_cols``), when it does not launch the pooler's
 geometry and exact-tail kernels and its layout's patch kernel twice each
-(box and mask pool), or when tracing off
+(box and mask pool), when a sync of the device thread lies inside a
+ViTDet backbone span (``vit.*``), when a ViTDet batch does not launch the
+attention kernel once per block (``relpos_attn.window``,
+``relpos_attn.global``: 20 and 4 for ViT-L), or when tracing off
 enters a ``record_function``, makes a CUDA event beyond the batch's
 arrival events, makes a sync that tracing on does not count, or leaves
 anything in ``TRACE``.  With ``--out``, the Chrome trace, gzipped, there.
@@ -56,6 +61,7 @@ from treedetection_tpu_torch.utils import profiling  # noqa: E402
 
 PACKAGE = str(ROOT / "treedetection_tpu_torch")
 CELL = "r101_tile_stream"
+BACKBONE_PREFIX = "vit."
 DEVICE_THREAD = "td-device"
 LAYOUT_ENV = {"flat": {}, "levels": {"TD_ROI_FLAT": "0"},
               "resident": {"TD_ROI_RESIDENT": "1"}}
@@ -147,11 +153,14 @@ class SyncLog:
         if "synchroniz" not in str(message):
             return self._show(message, category, filename, lineno, file, line)
         stack = traceback.extract_stack()[:-1]
-        spans = [s for s in getattr(_open, "stack", [])
+        open_spans = getattr(_open, "stack", [])
+        spans = [s for s in open_spans
                  if s.startswith(profiling.SYNC_PREFIX)]
+        backbone = [s for s in open_spans if s.startswith(BACKBONE_PREFIX)]
         self.calls.append({"site": _site(stack),
                            "thread": threading.current_thread().name,
-                           "span": spans[-1] if spans else None})
+                           "span": spans[-1] if spans else None,
+                           "backbone": backbone[-1] if backbone else None})
 
     def device_calls(self):
         return [c for c in self.calls
@@ -166,9 +175,9 @@ class SyncLog:
 
 # -- the cell ---------------------------------------------------------------------
 
-def setup(seed: int):
+def setup(seed: int, name: str = CELL):
     import harness
-    cell = harness.Cell(CELL)
+    cell = harness.Cell(name)
     traffic = importlib.import_module(f"traffic.{cell.entry['traffic']}")
     state = traffic.setup(cell, seed)
     torch.cuda.synchronize()
@@ -193,6 +202,16 @@ def _roi_counts():
     return {k: getattr(roi_align, v) for k, v in ROI_COUNTERS.items()}
 
 
+def _attention_launches(model):
+    """The attention kernel's launches a forward makes, by counter: one a
+    block, windowed or global (none for a ResNet backbone)."""
+    if getattr(model.cfg, "backbone", "resnet") != "vit":
+        return {}
+    glob = set(model.cfg.vit_global_blocks) & set(range(model.cfg.vit_depth))
+    return {"relpos_attn.window": model.cfg.vit_depth - len(glob),
+            "relpos_attn.global": len(glob)}
+
+
 def part_syncs(state, batches: int, layout: str, problems):
     from torch.profiler import ProfilerActivity, profile
     out = []
@@ -215,6 +234,19 @@ def part_syncs(state, batches: int, layout: str, problems):
                                  if n.startswith(profiling.SYNC_PREFIX)},
             "roi_launches": launched, "sites": log.summary(),
             "record": record}
+        attention = {n: c for n, c in snap["counts"].items()
+                     if n.startswith("relpos_attn.")}
+        line["attention_launches"] = attention
+        want_attention = _attention_launches(state["pred"].model)
+        if attention != want_attention:
+            problems.append(f"{layout} batch {k}: attention launches "
+                            f"{attention}, expected {want_attention}")
+        in_backbone = [c for c in device if c["backbone"] is not None]
+        line["backbone_syncs"] = len(in_backbone)
+        if in_backbone:
+            problems.append(f"{layout} batch {k}: {len(in_backbone)} syncs "
+                            f"inside the backbone's spans "
+                            f"({sorted({c['site'] for c in in_backbone})})")
         for site in NO_SYNC_SITES:
             if line["sync_span_counts"].get(site, 0):
                 problems.append(f"{layout} batch {k}: "
@@ -382,6 +414,8 @@ def part_chrome(traffic, state, out_dir: Optional[Path]):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cell", default=CELL,
+                    help="the benchmark cell whose weights and tiles serve")
     ap.add_argument("--seed", type=int, default=2718281828)
     ap.add_argument("--parts", default="syncs,off,chrome")
     ap.add_argument("--layouts", default="flat",
@@ -400,7 +434,7 @@ def main(argv=None) -> int:
     if set(layouts) - set(LAYOUT_ENV):
         ap.error(f"unknown layouts {sorted(set(layouts) - set(LAYOUT_ENV))}")
     _track_open_spans()
-    traffic, state = setup(args.seed)
+    traffic, state = setup(args.seed, args.cell)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "torch": torch.__version__}), flush=True)
     problems = []

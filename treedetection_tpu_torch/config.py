@@ -17,6 +17,12 @@ Differences:
   the port always runs exact top-k.
 * PyYAML is imported inside :func:`load_config` only; callers that pass a
   dict to :func:`prepare_config` never need it.
+* The port also serves Mask R-CNN ViTDet, which the JAX package lacks:
+  ``model_backbone: vit`` (default ``resnet``) with the ViT's widths
+  (``vit_*``; the backbone brings ViTDet's heads), and ``input_format``
+  (``BGR`` by default, ``RGB`` for ViTDet), the channel order the model
+  takes, in which ``pixel_mean`` and ``pixel_std`` are given.
+  :class:`ModelSpec` carries them beside the JAX package's fields.
 """
 
 from __future__ import annotations
@@ -336,6 +342,17 @@ class ModelSpec:
     test_resize: str = "fixed"
     resize_shortest_edge: int = 800
     resize_max_size: int = 1333
+    # the port's own: the backbone ("resnet" or "vit": ViTDet), the ViT's
+    # widths, and the model's channel order
+    backbone: str = "resnet"
+    vit_patch: int = 16
+    vit_dim: int = 1024
+    vit_depth: int = 24
+    vit_heads: int = 16
+    vit_mlp_ratio: float = 4.0
+    vit_window: int = 14
+    vit_global_blocks: Tuple[int, ...] = (5, 11, 17, 23)
+    input_format: str = "BGR"
 
 
 def model_spec(config: Dict[str, Any]) -> ModelSpec:
@@ -359,5 +376,31 @@ def model_spec(config: Dict[str, Any]) -> ModelSpec:
         test_resize=str(config.get("test_resize", "fixed")),
         resize_shortest_edge=int(config.get("resize_shortest_edge", 800)),
         resize_max_size=int(config.get("resize_max_size", 1333)),
+        **_backbone_fields(config),
         **overrides,
     )
+
+
+def _backbone_fields(config: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's own ModelSpec fields from ``config``."""
+    backbone = str(config.get("model_backbone") or "resnet")
+    if backbone not in ("resnet", "vit"):
+        raise ValueError(f"model_backbone must be resnet or vit, got "
+                         f"{backbone!r}")
+    input_format = str(config.get("input_format") or "BGR").upper()
+    if input_format not in ("BGR", "RGB"):
+        raise ValueError(f"input_format must be BGR or RGB, got "
+                         f"{input_format!r}")
+
+    return {
+        "backbone": backbone,
+        "vit_patch": int(config.get("vit_patch_size", 16)),
+        "vit_dim": int(config.get("vit_embed_dim", 1024)),
+        "vit_depth": int(config.get("vit_depth", 24)),
+        "vit_heads": int(config.get("vit_num_heads", 16)),
+        "vit_mlp_ratio": float(config.get("vit_mlp_ratio", 4.0)),
+        "vit_window": int(config.get("vit_window_size", 14)),
+        "vit_global_blocks": tuple(int(i) for i in config.get(
+            "vit_global_blocks", (5, 11, 17, 23))),
+        "input_format": input_format,
+    }

@@ -22,6 +22,14 @@ and deconv kernels stay as torch stores them, FrozenBatchNorm statistics are
 folded into (scale, bias), and the ``fc1`` input columns are permuted from
 torch's CHW flatten of the pooled feature to the HWC flatten of this model's
 (N, R, R, C) pooled layout.
+
+Mask R-CNN ViTDet (``models/vit.py``; the JAX package has no such model) is
+read from both: in the Flax layout its blocks are ``blocks_{i}`` (like the
+unrolled ``res{s}_{i}``), layer norms ``scale``/``bias``, the pyramid's
+deconvs ``deconv1``/``deconv2`` flipped as the mask head's ``deconv``; a
+detectron2 state dict with ``backbone.net.*`` keys is mapped from
+detectron2's own names (``backbone.simfp_{2..5}``, ``rpn_head.conv.conv{i}``,
+the 4conv1fc box head, the heads' ``norm`` LayerNorms).
 """
 
 from __future__ import annotations
@@ -121,7 +129,7 @@ def _torch_leaf(path: list, leaf: np.ndarray) -> np.ndarray:
     a = np.asarray(leaf, dtype=np.float32)
     if path[-1] != "kernel":
         return a
-    if path[-2] == "deconv":
+    if re.fullmatch(r"deconv\d*", path[-2]):
         # flax (kh, kw, in, out) holds the spatially flipped torch kernel
         return np.ascontiguousarray(np.transpose(a[::-1, ::-1], (2, 3, 0, 1)))
     if a.ndim == 4:                                   # conv HWIO -> OIHW
@@ -134,7 +142,7 @@ def _torch_leaf(path: list, leaf: np.ndarray) -> np.ndarray:
 def _torch_key(path: list) -> str:
     parts = []
     for p in path:
-        m = re.match(r"(res\d+)_(\d+)$", p)
+        m = re.match(r"(res\d+|blocks)_(\d+)$", p)
         parts.extend([m.group(1), m.group(2)] if m else [p])
     if parts[-1] == "kernel":
         parts[-1] = "weight"
@@ -166,7 +174,7 @@ def _flax_leaf(key: str, t: torch.Tensor) -> np.ndarray:
     a = t.detach().to(device="cpu", dtype=torch.float32).numpy()
     if not key.endswith(".weight"):
         return a
-    if ".deconv." in key:       # torch (in, out, kh, kw) -> flipped HWIO
+    if re.search(r"\.deconv\d*\.", key):  # (in, out, kh, kw) -> flipped HWIO
         return np.ascontiguousarray(np.transpose(a, (2, 3, 0, 1))[::-1, ::-1])
     if a.ndim == 4:             # conv OIHW -> HWIO
         return np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0)))
@@ -186,7 +194,7 @@ def to_flax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         parts = key.split(".")
         path = []
         for i, p in enumerate(parts[:-1]):
-            if p.isdigit() and re.match(r"res\d+$", parts[i - 1]):
+            if p.isdigit() and re.match(r"res\d+$|blocks$", parts[i - 1]):
                 path[-1] = f"{path[-1]}_{p}"
             else:
                 path.append(p)
@@ -298,8 +306,11 @@ def fc1_weight_chw_to_hwc(w: np.ndarray, channels: int, resolution: int
 def convert_detectron2_state_dict(sd: Mapping[str, Any], depth: int = 101,
                                   fpn_channels: int = 256, box_pool: int = 7
                                   ) -> Dict[str, torch.Tensor]:
-    """Map a detectron2 Mask R-CNN (R-FPN) state dict to the ``MaskRCNN``
-    state dict (float32)."""
+    """Map a detectron2 Mask R-CNN state dict to the ``MaskRCNN`` state dict
+    (float32): R-FPN of ``depth``, or ViTDet where it has ``backbone.net.*``
+    keys (its depth and heads read from the keys)."""
+    if "backbone.net.patch_embed.proj.weight" in sd:
+        return _convert_vitdet(sd, fpn_channels, box_pool)
     out: Dict[str, np.ndarray] = {}
 
     def plain(dst: str, src: str) -> None:
@@ -340,10 +351,80 @@ def convert_detectron2_state_dict(sd: Mapping[str, Any], depth: int = 101,
             for k, v in out.items()}
 
 
+def _convert_vitdet(sd: Mapping[str, Any], fpn_channels: int,
+                    box_pool: int) -> Dict[str, torch.Tensor]:
+    """detectron2's Mask R-CNN ViTDet (``projects/ViTDet``: ViT backbone,
+    ``SimpleFeaturePyramid``, StandardRPNHead with several convs, the
+    4conv1fc box head and the mask head with LN) -> ``MaskRCNN`` with
+    ``backbone="vit"``."""
+    out: Dict[str, np.ndarray] = {}
+
+    def copy(dst: str, src: str, leaves=("weight", "bias")) -> None:
+        for leaf in leaves:
+            out[f"{dst}.{leaf}"] = _to_numpy(sd[f"{src}.{leaf}"])
+
+    def norm(dst: str, src: str) -> None:     # LayerNorm weight -> scale
+        out[f"{dst}.scale"] = _to_numpy(sd[f"{src}.weight"])
+        out[f"{dst}.bias"] = _to_numpy(sd[f"{src}.bias"])
+
+    def conv_ln(dst: str, src: str) -> None:  # conv without bias + its LN
+        out[f"{dst}.weight"] = _to_numpy(sd[f"{src}.weight"])
+        norm(f"{dst}.norm", f"{src}.norm")
+
+    net = "backbone.net"
+    copy(f"{net}.patch_embed.proj", f"{net}.patch_embed.proj")
+    out[f"{net}.pos_embed"] = _to_numpy(sd[f"{net}.pos_embed"])
+    n_blocks = len({k.split(".")[3] for k in sd
+                    if k.startswith(f"{net}.blocks.")})
+    for i in range(n_blocks):
+        blk = f"{net}.blocks.{i}"
+        norm(f"{blk}.norm1", f"{blk}.norm1")
+        norm(f"{blk}.norm2", f"{blk}.norm2")
+        for layer in ("attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2"):
+            copy(f"{blk}.{layer}", f"{blk}.{layer}")
+        copy(f"{blk}.attn", f"{blk}.attn", ("rel_pos_h", "rel_pos_w"))
+    pyr = "backbone.pyramid"
+    # detectron2's Sequential indices per level: (deconvs..., conv 1x1,
+    # conv 3x3); simfp_2 holds deconv, LN, GELU, deconv first, simfp_5 its
+    # max-pool
+    copy(f"{pyr}.up2.deconv1", "backbone.simfp_2.0")
+    norm(f"{pyr}.up2.norm", "backbone.simfp_2.1")
+    copy(f"{pyr}.up2.deconv2", "backbone.simfp_2.3")
+    copy(f"{pyr}.up3.deconv1", "backbone.simfp_3.0")
+    for level, first in ((2, 4), (3, 1), (4, 0), (5, 1)):
+        conv_ln(f"{pyr}.lateral{level}", f"backbone.simfp_{level}.{first}")
+        conv_ln(f"{pyr}.output{level}",
+                f"backbone.simfp_{level}.{first + 1}")
+    rpn = "proposal_generator.rpn_head"
+    n_rpn = len({k.split(".")[3] for k in sd
+                 if k.startswith(f"{rpn}.conv.conv")})
+    for i in range(n_rpn):
+        copy(f"rpn_head.conv.conv{i}", f"{rpn}.conv.conv{i}")
+    for name in ("objectness_logits", "anchor_deltas"):
+        copy(f"rpn_head.{name}", f"{rpn}.{name}")
+    box = "roi_heads.box_head"
+    n_convs = len({k.split(".")[2] for k in sd
+                   if re.match(rf"{box}\.conv\d+\.", k)})
+    for i in range(1, n_convs + 1):
+        conv_ln(f"box_head.conv{i}", f"{box}.conv{i}")
+    copy("box_head.fc1", f"{box}.fc1")
+    out["box_head.fc1.weight"] = fc1_weight_chw_to_hwc(
+        out["box_head.fc1.weight"], fpn_channels, box_pool)
+    copy("box_head.cls_score", "roi_heads.box_predictor.cls_score")
+    copy("box_head.bbox_pred", "roi_heads.box_predictor.bbox_pred")
+    for i in range(1, 5):
+        conv_ln(f"mask_head.mask_fcn{i}", f"roi_heads.mask_head.mask_fcn{i}")
+    for name in ("deconv", "predictor"):
+        copy(f"mask_head.{name}", f"roi_heads.mask_head.{name}")
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+            for k, v in out.items()}
+
+
 def load_checkpoint(path: str, depth: int = 101) -> Dict[str, torch.Tensor]:
     """Load a model checkpoint as a ``MaskRCNN`` state dict: a ``.npz``
     written by the JAX package (``save_checkpoint_npz``) or a detectron2
-    ``.pth``/``.pkl`` (``depth`` names its ResNet)."""
+    ``.pth``/``.pkl`` (``depth`` names its ResNet; a ViTDet checkpoint is
+    recognised by its keys)."""
     if path.endswith(".pth") or path.endswith(".pkl"):
         blob = torch.load(path, map_location="cpu", weights_only=False)
         sd = blob.get("model", blob) if isinstance(blob, dict) else blob

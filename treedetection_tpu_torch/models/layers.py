@@ -10,6 +10,10 @@ weight's dtype otherwise, so a model moved to bfloat16 for serving
 :func:`lecun_normal_` draws Flax's default kernel initialiser
 (``variance_scaling(1.0, "fan_in", "truncated_normal")``) from an explicit
 ``torch.Generator``.
+
+:class:`LayerNorm` normalises over the last axis (a token's channels) and
+:class:`LayerNorm2d` over the channels of an NCHW map (detectron2's ``LN``),
+both with Flax's parameter names ``scale`` and ``bias``.
 """
 
 from __future__ import annotations
@@ -59,6 +63,45 @@ class Linear(nn.Linear):
 
 
 COMPUTE_LAYERS = (Conv2d, ConvTranspose2d, Linear)
+
+
+class LayerNorm(nn.Module):
+    """Layer norm over the last axis, in the input's dtype, with the
+    parameters ``scale`` and ``bias``."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        return F.layer_norm(x, (x.shape[-1],), self.scale.to(dt),
+                            self.bias.to(dt), self.eps)
+
+
+class LayerNorm2d(LayerNorm):
+    """Layer norm over the channels of an NCHW map (each pixel on its
+    own), as detectron2's ``LN``.  A map in channels_last memory is
+    normalised through its NHWC view, with no copy."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+class ConvLN(Conv2d):
+    """A same-padded conv without bias followed by its channel LayerNorm
+    ``norm`` (eps 1e-6), the norm a child of the conv as in detectron2's
+    ``Conv2d(..., norm="LN")``."""
+
+    def __init__(self, in_features: int, features: int, kernel: int):
+        super().__init__(in_features, features, kernel,
+                         padding=(kernel - 1) // 2, bias=False)
+        self.norm = LayerNorm2d(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(super().forward(x))
 
 
 def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> None:

@@ -14,6 +14,11 @@ conv and dense layer casts them, with its input, to bfloat16 at each call,
 as Flax's ``dtype`` does.  ``norm`` and ``remat`` select the backbone's
 norm and recomputation (``models/resnet.py``); :func:`create_model`
 initialises as Flax does.
+
+``backbone`` selects the backbone and its heads: ``"resnet"`` (ResNet-FPN
+of ``depth``, the R-FPN heads) or ``"vit"`` (ViTDet: ``models/vit.py``'s
+plain ViT and simple feature pyramid at the ``vit_*`` widths, with
+ViTDet's heads, ``VITDET_HEADS``).
 """
 
 from __future__ import annotations
@@ -31,12 +36,17 @@ from treedetection_tpu_torch.models.resnet import ResNetFPN
 from treedetection_tpu_torch.models.roi_heads import (
     BoxHead, MaskHead, box_inference)
 from treedetection_tpu_torch.models.rpn import RPNHead, generate_proposals
+from treedetection_tpu_torch.models.vit import ViTDetBackbone
 from treedetection_tpu_torch.ops.roi_align import (
     PoolFn, multilevel_roi_align_batched)
 
 FPN_STRIDES = (4, 8, 16, 32, 64)
 # the forward's stages, in order, as ``MaskRCNN.forward`` marks their ends
 STAGES = ("rpn", "proposals", "boxpool", "boxhead", "maskhead")
+# ViTDet's heads (mask_rcnn_vitdet.py): two RPN convs, a box head of four
+# 3x3 convs and one FC, channel LayerNorms in the box and mask heads
+VITDET_HEADS = {"rpn_convs": 2, "box_head_convs": 4, "norm": "LN"}
+RFPN_HEADS = {"rpn_convs": 1, "box_head_convs": 0, "norm": ""}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +71,15 @@ class MaskRCNNConfig:
     # backbone norm: "frozen" (serving, fine-tuning converted checkpoints) or
     # "batch" (from-scratch training; fold_batch_stats before serving)
     norm: str = "frozen"
+    # "resnet" or "vit" (ViTDet); the ViT's widths and ViTDet's heads
+    backbone: str = "resnet"
+    vit_patch: int = 16
+    vit_dim: int = 1024
+    vit_depth: int = 24
+    vit_heads: int = 16
+    vit_mlp_ratio: float = 4.0
+    vit_window: int = 14
+    vit_global_blocks: Tuple[int, ...] = (5, 11, 17, 23)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -89,12 +108,27 @@ class MaskRCNN(nn.Module):
     def __init__(self, cfg: MaskRCNNConfig = MaskRCNNConfig()):
         super().__init__()
         self.cfg = cfg
-        self.backbone = ResNetFPN(depth=cfg.depth, norm=cfg.norm,
-                                  remat=cfg.remat)
-        self.rpn_head = RPNHead(num_anchors=len(cfg.anchor_ratios))
+        if cfg.backbone == "resnet":
+            self.backbone = ResNetFPN(depth=cfg.depth, norm=cfg.norm,
+                                      remat=cfg.remat)
+        elif cfg.backbone == "vit":
+            self.backbone = ViTDetBackbone(
+                img_size=cfg.input_size, patch=cfg.vit_patch,
+                dim=cfg.vit_dim, depth=cfg.vit_depth,
+                num_heads=cfg.vit_heads, mlp_ratio=cfg.vit_mlp_ratio,
+                window=cfg.vit_window,
+                global_blocks=cfg.vit_global_blocks)
+        else:
+            raise ValueError(f"unknown backbone {cfg.backbone!r}")
+        heads = VITDET_HEADS if cfg.backbone == "vit" else RFPN_HEADS
+        self.rpn_head = RPNHead(num_anchors=len(cfg.anchor_ratios),
+                                num_convs=heads["rpn_convs"])
         self.box_head = BoxHead(in_features=256 * cfg.box_pool ** 2,
-                                num_classes=cfg.num_classes)
-        self.mask_head = MaskHead(num_classes=cfg.num_classes)
+                                num_classes=cfg.num_classes,
+                                num_convs=heads["box_head_convs"],
+                                norm=heads["norm"])
+        self.mask_head = MaskHead(num_classes=cfg.num_classes,
+                                  norm=heads["norm"])
         # float32 anchors per device (not buffers: .to(bf16) must not touch them)
         self._anchors: Dict[torch.device, list] = {}
         if cfg.bf16:

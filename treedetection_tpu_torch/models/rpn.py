@@ -20,22 +20,37 @@ from treedetection_tpu_torch.ops.nms import nms_mask, stable_topk
 
 
 class RPNHead(nn.Module):
-    """Shared 3x3 conv + 1x1 objectness / 1x1 anchor-delta heads.
+    """Shared 3x3 conv(s) + 1x1 objectness / 1x1 anchor-delta heads.
 
     NHWC in and out: ``feats[l]`` (B, H, W, C) -> logits (B, H, W, A) and
-    deltas (B, H, W, 4A)."""
+    deltas (B, H, W, 4A).  ``num_convs`` 3x3 convs with ReLU: one is
+    ``conv`` (the R-FPN head), more are ``conv.conv0``, ``conv.conv1``, ...
+    (detectron2's ``conv_dims`` of several entries, as ViTDet's)."""
 
-    def __init__(self, num_anchors: int = 3, features: int = 256):
+    def __init__(self, num_anchors: int = 3, features: int = 256,
+                 num_convs: int = 1):
         super().__init__()
-        self.conv = Conv2d(features, features, 3, padding=1)
+        if num_convs == 1:
+            self.conv = Conv2d(features, features, 3, padding=1)
+        else:
+            self.conv = nn.Sequential()
+            for i in range(num_convs):
+                self.conv.add_module(f"conv{i}", Conv2d(
+                    features, features, 3, padding=1))
         self.objectness_logits = Conv2d(features, num_anchors, 1)
         self.anchor_deltas = Conv2d(features, num_anchors * 4, 1)
+
+    def _convs(self, t: torch.Tensor) -> torch.Tensor:
+        for conv in (self.conv if isinstance(self.conv, nn.Sequential)
+                     else (self.conv,)):
+            t = F.relu(conv(t))
+        return t
 
     def forward(self, feats: Sequence[torch.Tensor]
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         logits, regs = [], []
         for f in feats:
-            t = F.relu(self.conv(f.permute(0, 3, 1, 2)))
+            t = self._convs(f.permute(0, 3, 1, 2))
             logits.append(self.objectness_logits(t).permute(0, 2, 3, 1))
             regs.append(self.anchor_deltas(t).permute(0, 2, 3, 1))
         return logits, regs

@@ -1,5 +1,5 @@
-"""Image preprocessing on the device: BGR normalization, bilinear resize,
-16-bit rescale and NDVI.
+"""Image preprocessing on the device: normalization (in the model's input
+order, BGR or RGB), bilinear resize, 16-bit rescale and NDVI.
 
 Counterpart of ``treedetection_tpu/ops/image.py``.  The resize keeps the
 JAX package's half-pixel interpolation matrices, applied as two matmuls.
@@ -86,6 +86,31 @@ def normalize_bgr(rgb: torch.Tensor,
     return (bgr - mean) / std
 
 
+INPUT_FORMATS = ("BGR", "RGB")
+
+
+def normalize_image(rgb: torch.Tensor, pixel_mean: Tuple[float, ...],
+                    pixel_std: Tuple[float, ...],
+                    input_format: str = "BGR") -> torch.Tensor:
+    """RGB(I) (..., C>=3) -> the model's normalized input (..., 3) in
+    float32: ``"BGR"`` is :func:`normalize_bgr` (detectron2's caffe
+    models), ``"RGB"`` keeps the channel order (ViTDet); ``pixel_mean`` and
+    ``pixel_std`` are in the model's order."""
+    if input_format == "BGR":
+        return normalize_bgr(rgb, pixel_mean, pixel_std)
+    if input_format != "RGB":
+        raise ValueError(f"unknown input format {input_format!r} (one of "
+                         f"{INPUT_FORMATS})")
+    x = rgb[..., :3].to(torch.float32)
+    # each of the two copies of host values to the card is a sync
+    with span("sync.normalize"):
+        mean = torch.tensor(pixel_mean, dtype=torch.float32,
+                            device=rgb.device)
+    with span("sync.normalize"):
+        std = torch.tensor(pixel_std, dtype=torch.float32, device=rgb.device)
+    return (x - mean) / std
+
+
 def ndvi_from_rgbi(rgbi: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
     """NDVI = (NIR - R) / (NIR + R + eps) in float32 from an RGBI tensor
     (..., 4): channel 0 red, channel 3 near infrared, both scaled by 1/255
@@ -104,13 +129,15 @@ def rescale_16bit(img: torch.Tensor) -> torch.Tensor:
 def rgbi_to_model_input(rgbi: torch.Tensor, out_size: int,
                         pixel_mean: Tuple[float, ...] = (103.53, 116.28, 123.675),
                         pixel_std: Tuple[float, ...] = (1.0, 1.0, 1.0),
-                        is_16bit: bool = False) -> torch.Tensor:
-    """Tile -> model input: optional 16-bit rescale, BGR reorder, normalize,
-    resize to the square model resolution.  HWC or NHWC in, the same out."""
+                        is_16bit: bool = False,
+                        input_format: str = "BGR") -> torch.Tensor:
+    """Tile -> model input: optional 16-bit rescale, the model's channel
+    order (``input_format``), normalize, resize to the square model
+    resolution.  HWC or NHWC in, the same out."""
     x = rgbi
     if is_16bit:
         x = rescale_16bit(x)
-    x = normalize_bgr(x, pixel_mean, pixel_std)
+    x = normalize_image(x, pixel_mean, pixel_std, input_format)
     if x.shape[-3] != out_size or x.shape[-2] != out_size:
         x = resize_bilinear(x, out_size, out_size)
     return x

@@ -62,7 +62,8 @@ from treedetection_tpu_torch.models.convert import load_checkpoint
 from treedetection_tpu_torch.models.mask_rcnn import (
     STAGES, MaskRCNN, MaskRCNNConfig, ModelOutput)
 from treedetection_tpu_torch.native import resize_threshold_mask, trace_contours
-from treedetection_tpu_torch.ops.image import normalize_bgr, resize_bilinear
+from treedetection_tpu_torch.ops.image import normalize_image, resize_bilinear
+from treedetection_tpu_torch.ops.kernels import relpos_attention
 from treedetection_tpu_torch.ops.kernels import roi_align as roi_kernels
 from treedetection_tpu_torch.ops.roi_align import (
     pooler_libraries, report_overflow_host)
@@ -251,6 +252,14 @@ class Predictor:
             mask_pool=spec.mask_resolution // 2,
             anchor_sizes=spec.anchor_sizes,
             anchor_ratios=spec.anchor_ratios,
+            backbone=spec.backbone,
+            vit_patch=spec.vit_patch,
+            vit_dim=spec.vit_dim,
+            vit_depth=spec.vit_depth,
+            vit_heads=spec.vit_heads,
+            vit_mlp_ratio=spec.vit_mlp_ratio,
+            vit_window=spec.vit_window,
+            vit_global_blocks=spec.vit_global_blocks,
         )
         self.dtype = (torch.bfloat16 if spec.bf16 and self.device.type != "cpu"
                       else torch.float32)
@@ -306,10 +315,12 @@ class Predictor:
 
     def preprocess(self, raw: torch.Tensor, pad: int) -> torch.Tensor:
         """(B, pad, pad, 3) uint8 on the device -> normalized model input
-        (B, S, S, 3): BGR, mean/std, bilinear resize of the tile to the
-        content size, zero padding to the static canvas."""
+        (B, S, S, 3): the model's channel order (BGR, or RGB for ViTDet),
+        mean/std, bilinear resize of the tile to the content size, zero
+        padding to the static canvas."""
         size, content = self.cfg.input_size, self._content(pad)
-        x = normalize_bgr(raw, self.spec.pixel_mean, self.spec.pixel_std)
+        x = normalize_image(raw, self.spec.pixel_mean, self.spec.pixel_std,
+                            self.spec.input_format)
         x = resize_bilinear(x, content, content)
         if content < size:
             x = F.pad(x, (0, 0, 0, size - content, 0, size - content))
@@ -355,16 +366,21 @@ class Predictor:
     def warmup(self, pad: int) -> None:
         """Do the first use's work for ``pad`` ahead of the first batch:
         build the kernel libraries that the forward loads (the pooler of the
-        layout the environment selects, on the card) and the native library
+        layout the environment selects, on the card, and ViTDet's attention
+        kernel) and the native library
         that ``flush`` loads, concurrently, then run one forward of a zero
         (batch_size, pad, pad, 3) batch on the device thread(s) and wait for
         it, which sets up each thread's cuDNN/cuBLAS state.  Called from the
         compile-warmup thread; also useful to front-load that cost."""
         t0 = time.time()
         libs = pooler_libraries() if self.device.type == "cuda" else ()
-        with ThreadPoolExecutor(max_workers=1 + len(libs)) as builds:
+        attention = (self.device.type == "cuda"
+                     and self.cfg.backbone == "vit")
+        with ThreadPoolExecutor(max_workers=2 + len(libs)) as builds:
             futures = [builds.submit(native.build)] + [
                 builds.submit(roi_kernels.build, name) for name in libs]
+            if attention:
+                futures.append(builds.submit(relpos_attention.build))
             for f in futures:
                 f.result()
         forward, _ = self._get_forward(pad)
