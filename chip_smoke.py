@@ -792,6 +792,17 @@ GEOMETRY_FIELDS = ("img", "levels", "oy", "ox_al", "sy", "sx_al", "valid_y",
 # tokens, 16 heads of 64, windows of 14 (20 blocks) or the whole map (4)
 RELPOS_SHAPES = {"batch": 10, "side": 64, "heads": 16, "window": 14,
                  "blocks": {"window": 20, "global": 4}}
+# the kernel's edges beside the cell's shapes: (name, batch, H, W, heads,
+# window (0: global), one table per head) -- per-head tables, a map that is
+# no multiple of the window, a global width that fills no 64-token tile row,
+# batch 1
+RELPOS_EDGES = (
+    ("window_tables_per_head", 2, 64, 64, 16, 14, True),
+    ("global_tables_per_head", 1, 64, 64, 16, 0, True),
+    ("window_map_40x56", 2, 40, 56, 16, 14, False),
+    ("global_map_40x56", 1, 40, 56, 16, 0, False),
+    ("window_batch_1", 1, 64, 64, 16, 14, False),
+)
 
 
 def relpos_bound_ms(b, side, heads, sh, sw):
@@ -836,28 +847,38 @@ def _relpos_library(qkv, bias, rh, rw, heads, window):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
+def _relpos_inputs(gen, b, h, w, heads, window, per_head):
+    """bf16 qkv, bias and tables of std 1.7 (q, k) and 0.1 (tables): logits
+    scale*q.k of std ~3, the bias terms of std ~1.4, as the cell's
+    calibrated weights give them."""
+    import torch
+    c = heads * 64
+    sh, sw = (window, window) if window else (h, w)
+    lead = (heads,) if per_head else ()
+    qkv = (torch.randn(b, h, w, 3 * c, generator=gen, device="cuda")
+           * 1.7).bfloat16()
+    bias = (torch.randn(3 * c, generator=gen, device="cuda") * 1.7).bfloat16()
+    rh = (torch.randn(*lead, 2 * sh - 1, 64, generator=gen, device="cuda")
+          * 0.1).bfloat16()
+    rw = (torch.randn(*lead, 2 * sw - 1, 64, generator=gen, device="cuda")
+          * 0.1).bfloat16()
+    return qkv, bias, rh, rw
+
+
 def phase_kernel_relpos(state):
     """The attention kernel at the ViTDet cell's shapes against its plain
-    version, with its times, bound and launches."""
+    version, with its times, bound and launches; then on the kernel's edge
+    shapes (``RELPOS_EDGES``) against the plain version."""
     import torch
     from treedetection_tpu_torch.ops.kernels import relpos_attention as ra
     sh = RELPOS_SHAPES
     b, side, heads = sh["batch"], sh["side"], sh["heads"]
-    c = heads * 64
     gen = torch.Generator(device="cuda").manual_seed(20)
     rows = {}
     for kind, window in (("window", sh["window"]), ("global", 0)):
         s = window or side
-        # q, k entries of std 1.7: logits scale*q.k of std ~3, the bias
-        # terms of std ~1.4, as the cell's calibrated weights give them
-        qkv = (torch.randn(b, side, side, 3 * c, generator=gen,
-                           device="cuda") * 1.7).bfloat16()
-        bias = (torch.randn(3 * c, generator=gen, device="cuda")
-                * 1.7).bfloat16()
-        rh = (torch.randn(2 * s - 1, 64, generator=gen, device="cuda")
-              * 0.1).bfloat16()
-        rw = (torch.randn(2 * s - 1, 64, generator=gen, device="cuda")
-              * 0.1).bfloat16()
+        qkv, bias, rh, rw = _relpos_inputs(gen, b, side, side, heads, window,
+                                           False)
         before = (ra.launches_relpos_window, ra.launches_relpos_global)
         got = ra.relpos_attention(qkv, bias, rh, rw, heads, window)
         torch.cuda.synchronize()
@@ -904,9 +925,32 @@ def phase_kernel_relpos(state):
               **rows[kind]})
         del qkv, got, plain
         torch.cuda.empty_cache()
+    edges = {}
+    for name, eb, eh, ew, eheads, window, per_head in RELPOS_EDGES:
+        qkv, bias, rh, rw = _relpos_inputs(gen, eb, eh, ew, eheads, window,
+                                           per_head)
+        before = (ra.launches_relpos_window, ra.launches_relpos_global)
+        got = ra.relpos_attention(qkv, bias, rh, rw, eheads, window)
+        torch.cuda.synchronize()
+        launched = (ra.launches_relpos_window - before[0],
+                    ra.launches_relpos_global - before[1])
+        plain = ra.relpos_attention_reference(
+            qkv.float(), bias.float(), rh.float(), rw.float(), eheads, window)
+        err = (got.float() - plain).abs()
+        edges[name] = {
+            "shape": [eb, eh, ew, eheads, 64], "window": window,
+            "tables_per_head": per_head, "launched": launched,
+            "max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+            "out_abs_max": float(plain.abs().max()),
+            "finite": bool(torch.isfinite(got).all())}
+        emit({"phase": "kernel", "kernel": "relpos_attention", "edge": name,
+              **edges[name]})
+        del qkv, got, plain, err
+        torch.cuda.empty_cache()
     state["relpos"] = rows
-    for kind, r in rows.items():
-        want = (1, 0) if kind == "window" else (0, 1)
+    state["relpos_edges"] = edges
+    for kind, r in list(rows.items()) + list(edges.items()):
+        want = (1, 0) if r["window"] else (0, 1)
         if r["launched"] != want:
             fail(f"kernel: relpos_attention {kind}: launches {r['launched']},"
                  f" expected {want}")
@@ -3987,7 +4031,8 @@ def kernels_line(state):
             "max_abs_err": max(r["max_abs_err"] for r in relpos.values()),
             "per_forward_of": "20 windowed + 4 global launches, batch 10, "
                               "64 x 64 tokens, 16 heads of 64, bf16",
-            "by_kind": relpos, "ptxas": state.get("relpos_ptxas")})
+            "by_kind": relpos, "edges": state.get("relpos_edges"),
+            "ptxas": state.get("relpos_ptxas")})
     return {"kernels": kernels}
 
 

@@ -8,6 +8,7 @@ rows.  Also the loaders (the Flax layout strictly, detectron2's ViTDet key
 names), the RGB input order, and the R-FPN path left as it was."""
 
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -95,32 +96,70 @@ def _reference(w) -> ViTDet:
 
 # -- the attention ------------------------------------------------------------
 
-@pytest.mark.parametrize("window", [3, 0], ids=["windowed", "global"])
-def test_attention_plain_version_matches_the_materialised_reference(window):
+# (batch, map H, map W, window (0: global), one table per head): the
+# kernel's edges at a tiny size.  The windowed 8 x 8 map pads to 9 x 9 (its
+# pad keys are the qkv bias, unmasked) and the global block has 15-row
+# tables; 7 x 10 is a multiple of window 4 in neither direction; the global
+# 6 x 7 map's width fits no row-aligned key tile.
+ATTENTION_CASES = {
+    "windowed": (2, 8, 8, 3, False),
+    "global": (2, 8, 8, 0, False),
+    "windowed_ragged_map": (2, 7, 10, 4, False),
+    "global_unaligned_width": (2, 6, 7, 0, False),
+    "windowed_tables_per_head": (2, 8, 8, 3, True),
+    "global_tables_per_head": (1, 6, 7, 0, True),
+    "batch_1": (1, 8, 8, 3, False),
+}
+
+
+@pytest.mark.parametrize("case", ATTENTION_CASES)
+def test_attention_plain_version_matches_the_materialised_reference(case):
     """The plain version against detectron2's attention written out (the
-    reference's ``block_attention`` with an identity projection): the
-    windowed block's 8 x 8 map padded to 9 x 9 (its pad keys are the qkv
-    bias, unmasked), the global block's 15-row tables."""
+    reference's ``block_attention`` with an identity projection) on the
+    shapes of ``ATTENTION_CASES``.  With a table per head, the reference
+    runs once a head with that head's tables."""
+    b, h, w, window, per_head = ATTENTION_CASES[case]
     gen = torch.Generator().manual_seed(1)
-    b, h, w, heads, d = 2, 8, 8, 4, 16
+    heads, d = 4, 16
     c = heads * d
     x = torch.randn(b, h, w, c, generator=gen)
     kernel = torch.randn(c, 3 * c, generator=gen) * (2.0 / c ** 0.5)
     bias = torch.randn(3 * c, generator=gen)
-    side = window or h
-    rh = torch.randn(2 * side - 1, d, generator=gen) * 0.3
-    rw = torch.randn(2 * side - 1, d, generator=gen) * 0.3
+    sh, sw = (window, window) if window else (h, w)
+    lead = (heads,) if per_head else ()
+    rh = torch.randn(*lead, 2 * sh - 1, d, generator=gen) * 0.3
+    rw = torch.randn(*lead, 2 * sw - 1, d, generator=gen) * 0.3
     got = relpos_attention(x @ kernel + bias, bias, rh, rw, heads, window)
     blk = f"{NET}/blocks_0/attn"
-    weights = {f"{blk}/qkv/kernel": kernel, f"{blk}/qkv/bias": bias,
-               f"{blk}/proj/kernel": torch.eye(c),
-               f"{blk}/proj/bias": torch.zeros(c),
-               f"{blk}/rel_pos_h": rh, f"{blk}/rel_pos_w": rw}
     model = dict(TINY, vit_heads=heads, vit_window=window or 3,
                  vit_global_blocks=[] if window else [0], vit_depth=1)
-    want = ViTDet(weights, model).block_attention(x, 0)
+    want = torch.empty(b, h, w, c)
+    for head in range(heads if per_head else 1):
+        weights = {f"{blk}/qkv/kernel": kernel, f"{blk}/qkv/bias": bias,
+                   f"{blk}/proj/kernel": torch.eye(c),
+                   f"{blk}/proj/bias": torch.zeros(c),
+                   f"{blk}/rel_pos_h": rh[head] if per_head else rh,
+                   f"{blk}/rel_pos_w": rw[head] if per_head else rw}
+        out = ViTDet(weights, model).block_attention(x, 0)
+        cols = slice(head * d, (head + 1) * d) if per_head else slice(None)
+        want[..., cols] = out[..., cols]
     assert got.shape == (b, h, w, c)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_every_attention_kernel_carries_the_name_the_benchmark_reads():
+    """The benchmark's ``relpos_attn_ms`` and ``relpos_attn_roofline`` and
+    ``chip_smoke.py`` find the kernel's device time by a substring of its
+    name: every ``__global__`` function of the source carries it."""
+    from metrics.relpos_attn_roofline import KERNEL
+    src = (REPO / "treedetection_tpu_torch" / "csrc" /
+           "relpos_attention.cu").read_text()
+    code = re.sub(r"//[^\n]*", "", src)
+    names = re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+        code)
+    assert len(names) == code.count("__global__") >= 1
+    assert all(KERNEL in name for name in names), names
 
 
 def test_attention_tables_per_head_and_the_bias_matter():

@@ -19,13 +19,15 @@ part in the softmax (they are not masked).
 
 ``csrc/relpos_attention.cu`` (compiled with nvcc for ``sm_90a`` at first
 use and bound with ctypes) does a whole block of a batch in one launch: it
-reads q, k and v through strides from the projection's output and the bias
-for the pad keys, and writes the output in place of the unpartitioned map,
-so no window is partitioned, padded or permuted in memory.  Its source says
-what bounds it and how its design answers.  For a CUDA tensor the wrapper
-launches it or raises (bfloat16 only, head size 64); only a tensor on the
-CPU takes :func:`relpos_attention_reference`, the attention materialised in
-float32 as detectron2's ``add_decomposed_rel_pos`` computes it.
+reads q, k and v by TMA in window-shaped boxes of the projection's output
+(the descriptors encoded on the host from the pointers and shapes, nothing
+read back) and the bias for the pad keys, and writes the output in place of
+the unpartitioned map, so no window is partitioned, padded or permuted in
+memory.  Its source says what bounds it and how its design answers.  For a
+CUDA tensor the wrapper launches it or raises (bfloat16 only, head size 64,
+16-byte aligned inputs); only a tensor on the CPU takes
+:func:`relpos_attention_reference`, the attention materialised in float32 as
+detectron2's ``add_decomposed_rel_pos`` computes it.
 """
 
 from __future__ import annotations
@@ -133,6 +135,8 @@ def relpos_attention(qkv: torch.Tensor, bias: torch.Tensor,
         if t.dtype != torch.bfloat16 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous bfloat16, got "
                              f"{t.dtype} {tuple(t.stride())}")
+        if t.data_ptr() % 16:   # TMA and the pad rows' 16-byte loads
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     out = torch.empty((b, h, w, c), dtype=qkv.dtype, device=qkv.device)
     table_stride = [t.stride(0) if t.dim() == 3 else 0
                     for t in (rel_h, rel_w)]
