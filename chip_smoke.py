@@ -271,22 +271,24 @@ class layout_env:
                 os.environ[k] = v
 
 
-def _reset_roi_launches(k) -> None:
-    k.launches = k.launches_patches = k.launches_resident = 0
+def _launches(*names, reset=False):
+    """The launches of the counters ``names`` (``build.launch_counts``);
+    with ``reset``, every counter starts again from 0."""
+    from treedetection_tpu_torch.build import launch_counts
+    counts = launch_counts(reset)
+    return {name: counts[name] for name in names}
 
 
-def _roi_launches(k):
-    return {"k1": k.launches, "k5": k.launches_patches,
-            "k6": k.launches_resident}
+ROI = ("k1", "k5", "k6")
+PAIRWISE = ("iou", "containment", "dedupe", "pairs")
 
 
 # --- phase 1: build ----------------------------------------------------------
 
 def phase_build(state):
-    from treedetection_tpu_torch import native
-    from treedetection_tpu_torch.ops.kernels import pairwise as k234
-    from treedetection_tpu_torch.ops.kernels import relpos_attention as ra
-    from treedetection_tpu_torch.ops.kernels import roi_align as k1
+    from treedetection_tpu_torch import build, native  # noqa: F401
+    from treedetection_tpu_torch.ops.kernels import (  # noqa: F401
+        pairwise, relpos_attention, roi_align)
     results, errors = {}, {}
 
     def run(name, fn):
@@ -297,9 +299,7 @@ def phase_build(state):
             errors[name] = repr(exc)
 
     t0 = time.time()
-    jobs = [(name, lambda name=name: k1.build(name)) for name in ROI_LIBRARIES]
-    jobs += [("pairwise_boxes", k234.build), ("td_native", native.build),
-             ("relpos_attention", ra.build)]
+    jobs = [(name, lib.build) for name, lib in build.LIBRARIES.items()]
     threads = [threading.Thread(target=run, args=job) for job in jobs]
     for t in threads:
         t.start()
@@ -315,8 +315,7 @@ def phase_build(state):
     # the bf16 kernels of K1, K5 and K6, all pool_box_bf16: registers,
     # spills, static shared memory (ptxas) and the dynamic shared memory a
     # block asks for (from the built library)
-    import ctypes
-    levels = ctypes.CDLL(str(results["roi_pool_levels"][0]))
+    levels = build.load(roi_align.LEVELS)
     dynamic = {f"R{r}": levels.td_roi_pool_bf16_smem_bytes(r) for r in (7, 14)}
     bf16_ptxas = {}
     for key, lib, kernel in (
@@ -871,6 +870,7 @@ def phase_kernel_relpos(state):
     shapes (``RELPOS_EDGES``) against the plain version."""
     import torch
     from treedetection_tpu_torch.ops.kernels import relpos_attention as ra
+    attention = ("relpos.window", "relpos.global")
     sh = RELPOS_SHAPES
     b, side, heads = sh["batch"], sh["side"], sh["heads"]
     gen = torch.Generator(device="cuda").manual_seed(20)
@@ -879,11 +879,10 @@ def phase_kernel_relpos(state):
         s = window or side
         qkv, bias, rh, rw = _relpos_inputs(gen, b, side, side, heads, window,
                                            False)
-        before = (ra.launches_relpos_window, ra.launches_relpos_global)
+        _launches(reset=True)
         got = ra.relpos_attention(qkv, bias, rh, rw, heads, window)
         torch.cuda.synchronize()
-        launched = (ra.launches_relpos_window - before[0],
-                    ra.launches_relpos_global - before[1])
+        launched = tuple(_launches(*attention).values())
         # the plain version in float32 on the same bf16 inputs; the global
         # block's materialised logits on two images of the batch
         m = b if window else 2
@@ -929,11 +928,10 @@ def phase_kernel_relpos(state):
     for name, eb, eh, ew, eheads, window, per_head in RELPOS_EDGES:
         qkv, bias, rh, rw = _relpos_inputs(gen, eb, eh, ew, eheads, window,
                                            per_head)
-        before = (ra.launches_relpos_window, ra.launches_relpos_global)
+        _launches(reset=True)
         got = ra.relpos_attention(qkv, bias, rh, rw, eheads, window)
         torch.cuda.synchronize()
-        launched = (ra.launches_relpos_window - before[0],
-                    ra.launches_relpos_global - before[1])
+        launched = tuple(_launches(*attention).values())
         plain = ra.relpos_attention_reference(
             qkv.float(), bias.float(), rh.float(), rw.float(), eheads, window)
         err = (got.float() - plain).abs()
@@ -1024,7 +1022,6 @@ def phase_kernel_prep(state):
     one batched pooling call's host time and launches."""
     import torch
     from treedetection_tpu_torch.ops import roi_align as ra
-    from treedetection_tpu_torch.ops.kernels import roi_align as k
     from treedetection_tpu_torch.ops.nms import stable_topk
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(7)
@@ -1081,7 +1078,7 @@ def phase_kernel_prep(state):
                     got, ref = start.clone(), start.clone()
                     sel_got = torch.zeros(b * n, dtype=torch.bool, device=dev)
                     sel_ref = sel_got.clone()
-                    before = k.launches_exact_tail
+                    _launches(reset=True)
                     ra.exact_tail(buffers, flat, g, fl, ix, got, sel_got, r,
                                   2)
                     ra._exact_tail_reference(buffers, flat, g, fl, ix, ref,
@@ -1098,7 +1095,8 @@ def phase_kernel_prep(state):
                            "max_abs_err": err, "tolerance": tol,
                            "untouched_rows_equal": same_rest,
                            "sel_equal": same_sel,
-                           "launches": k.launches_exact_tail - before}
+                           "launches": _launches("exact_tail")[
+                               "exact_tail"]}
                     if dtype == torch.bfloat16:
                         row["vs_plain"] = ulp_errors(got, ref)
                     if picked == "mixed" and flat:
@@ -1123,9 +1121,9 @@ def phase_kernel_prep(state):
                     geom = {"phase": "kernel", "kernel": "roi_geometry",
                             "pool": pool, "dtype": dname, "n": b * n,
                             "resolution": r}
-                    before = k.launches_geometry
+                    _launches(reset=True)
                     ra.box_geometry(boxes, table, r, 2, True)
-                    geom["launches"] = k.launches_geometry - before
+                    geom["launches"] = _launches("geometry")["geometry"]
                     geom["ms"] = _timed_ms(
                         lambda: ra.box_geometry(boxes, table, r, 2, True))
                     geom["device_ms"] = _device_ms(
@@ -1514,7 +1512,6 @@ def predictor_config(workdir: Path, **over):
 def phase_predictor(state, workdir: Path):
     import torch
     from treedetection_tpu_torch import prediction
-    from treedetection_tpu_torch.ops.kernels import roi_align as k1
     from treedetection_tpu_torch.preprocessing import tile_single_file
     _clear_layout_env()
     tif = workdir / "rgb" / "324125317.tif"
@@ -1539,12 +1536,12 @@ def phase_predictor(state, workdir: Path):
 
     out2 = workdir / "pred_timed"
     torch.cuda.reset_peak_memory_stats()
-    _reset_roi_launches(k1)               # just before the main path
+    _launches(reset=True)               # just before the main path
     t0 = time.time()
     written = pred(str(tif), meta, str(out2))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = _roi_launches(k1)            # just after
+    counts = _launches(*ROI)            # just after
     launches = counts["k1"]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     stats = dict(prediction.LAST_RUN_STATS)
@@ -1600,16 +1597,15 @@ def phase_predictor_levels(state, workdir: Path):
     pool_box_bf16 on the same cells, so the tile files must equal the
     default pass's byte for byte."""
     import torch
-    from treedetection_tpu_torch.ops.kernels import roi_align as k
     pred = state["pred"]
     out = workdir / "pred_levels"
-    _reset_roi_launches(k)                    # just before the main path
+    _launches(reset=True)                    # just before the main path
     with layout_env("levels"):
         t0 = time.time()
         n_written = pred(str(state["tif"]), state["meta"], str(out))
         torch.cuda.synchronize()
         wall = time.time() - t0
-    counts = _roi_launches(k)                 # just after
+    counts = _launches(*ROI)                 # just after
     batches = math.ceil(n_written / pred.batch_size)
     flat, mine = _tile_files(state["pred_timed_dir"]), _tile_files(out)
     differ = sorted(name for name in flat if mine.get(name) != flat[name])
@@ -1644,7 +1640,6 @@ def phase_predictor_split(state, workdir: Path):
     products may sum in another order at another batch size."""
     import torch
     from treedetection_tpu_torch import prediction
-    from treedetection_tpu_torch.ops.kernels import roi_align as k
     split = prediction.Predictor(
         predictor_config(workdir, devices=["cuda:0", "cuda:0"]), str(NPZ))
     chunk = prediction.Predictor(
@@ -1655,12 +1650,12 @@ def phase_predictor_split(state, workdir: Path):
     chunk_dir = workdir / "pred_chunk"
     chunk(tif, meta, str(chunk_dir))
     out = workdir / "pred_split"
-    _reset_roi_launches(k)                    # just before the main path
+    _launches(reset=True)                    # just before the main path
     t0 = time.time()
     n_written = split(tif, meta, str(out))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = _roi_launches(k)                 # just after
+    counts = _launches(*ROI)                 # just after
     batches = math.ceil(n_written / split.batch_size)
     mine, same_chunk = _tile_files(out), _tile_files(chunk_dir)
     batch10 = _tile_files(state["pred_timed_dir"])
@@ -1737,7 +1732,6 @@ def phase_model(state, workdir: Path):
     from treedetection_tpu_torch import prediction
     from treedetection_tpu_torch.models.mask_rcnn import FPN_STRIDES
     from treedetection_tpu_torch.models.rpn import generate_proposals
-    from treedetection_tpu_torch.ops.kernels import roi_align as roi_kernels
     from treedetection_tpu_torch.ops.kernels.roi_align import (
         roi_pool_patches_flat, roi_pool_patches_flat_reference)
     from treedetection_tpu_torch.ops.roi_align import flat_pool_inputs
@@ -1778,11 +1772,11 @@ def phase_model(state, workdir: Path):
     layouts = {}
     for layout, kernel in (("flat", "k1"), ("levels", "k5"),
                            ("resident", "k6")):
-        _reset_roi_launches(roi_kernels)
+        _launches(reset=True)
         with layout_env(layout), torch.no_grad():
             out_l = model(x)
         torch.cuda.synchronize()
-        counts = _roi_launches(roi_kernels)
+        counts = _launches(*ROI)
         same = torch.equal(out_l.valid, out_k.valid)
         layouts[layout] = {
             "launches": counts, "kept": int(out_l.valid.sum()),
@@ -1887,8 +1881,6 @@ def phase_pipeline(state, workdir: Path):
     import torch
     from treedetection_tpu_torch import detection, postprocessing
     from treedetection_tpu_torch.config import Config, prepare_config
-    from treedetection_tpu_torch.ops.kernels import pairwise as k234
-    from treedetection_tpu_torch.ops.kernels import roi_align as k1
     from treedetection_tpu_torch.utils.synthetic import (
         DISCS_PER_KM2, SHEET_ORIGIN, SHEET_PX, write_synthetic_sheet)
     from treedetection_tpu_torch.vector import read_gpkg
@@ -1915,14 +1907,12 @@ def phase_pipeline(state, workdir: Path):
     torch.cuda.reset_peak_memory_stats()
     postprocessing.LAST_POSTPROCESS_STATS.clear()
     postprocessing.PAIR_KERNEL_CALLS.clear()
-    _reset_roi_launches(k1)                   # just before the main path
-    for mode in k234.launches:
-        k234.launches[mode] = 0
+    _launches(reset=True)                   # just before the main path
     t0 = time.time()
     outputs = detection.process_files(config)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {**_roi_launches(k1), **k234.launches}     # just after
+    launches = _launches(*ROI, *PAIRWISE)     # just after
     pair_calls = list(postprocessing.PAIR_KERNEL_CALLS)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     stages = dict(detection.LAST_STAGE_SECONDS)
@@ -1994,7 +1984,7 @@ def phase_pipeline(state, workdir: Path):
 
     # (1) the host-grid branch on the same stitched layers
     del os.environ["TD_PAIRS_DEVICE"]
-    before = dict(k234.launches)
+    before = _launches(*PAIRWISE)
     images, heights = detection._list_images(config)
     base_alloc = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2006,7 +1996,7 @@ def phase_pipeline(state, workdir: Path):
     torch.cuda.synchronize()
     grid_s = time.time() - t0
     stats_peak_gib = (torch.cuda.max_memory_allocated() - base_alloc) / 2 ** 30
-    if k234.launches != before:
+    if _launches(*PAIRWISE) != before:
         fail("pipeline: the host-grid branch launched a pairwise kernel")
     same = {}
     for p in grid_outputs:
@@ -2025,8 +2015,7 @@ def phase_pipeline(state, workdir: Path):
     os.environ["TD_PAIRS_DEVICE"] = "1"
     postprocessing.LAST_POSTPROCESS_STATS.clear()
     postprocessing.PAIR_KERNEL_CALLS.clear()
-    for mode in k234.launches:
-        k234.launches[mode] = 0
+    _launches(reset=True)
     t0 = time.time()
     dev_outputs = postprocessing.process_files_in_directory(
         config, str(out / "predictions"), images, heights,
@@ -2034,7 +2023,7 @@ def phase_pipeline(state, workdir: Path):
     torch.cuda.synchronize()
     dev_s = time.time() - t0
     del os.environ["TD_PAIRS_DEVICE"]
-    dev_launches = dict(k234.launches)
+    dev_launches = _launches(*PAIRWISE)
     dev_calls = list(postprocessing.PAIR_KERNEL_CALLS)
     dev_same = {Path(p).name: _crown_multiset(p)[0]
                 == _crown_multiset(root / "out_hostgrid" / Path(p).name)[0]
@@ -2054,16 +2043,16 @@ def phase_pipeline(state, workdir: Path):
     os.environ["TD_PAIRS_DEVICE"] = "1"
     Config.reset()
     config2, _ = prepare_config(pipeline_config(root), str(root))
-    k1.launches = 0
+    _launches(reset=True)
     t0 = time.time()
     outputs2 = detection.process_files(config2)
     resume_s = time.time() - t0
     del os.environ["TD_PAIRS_DEVICE"]
     emit({"phase": "pipeline_resume", "seconds": resume_s,
-          "k1_launches": k1.launches,
+          "k1_launches": _launches("k1")["k1"],
           "predictor_built": "_predictor_cache" in config2,
           "outputs": [Path(p).name for p in outputs2]})
-    if k1.launches or "_predictor_cache" in config2:
+    if _launches("k1")["k1"] or "_predictor_cache" in config2:
         fail("pipeline: the resumed run predicted again")
     if sorted(outputs2) != sorted(outputs):
         fail("pipeline: the resumed run returned other outputs")
@@ -2087,19 +2076,15 @@ def multihost_child(root: Path) -> None:
     import torch
     from treedetection_tpu_torch import detection, postprocessing, recoveries
     from treedetection_tpu_torch.config import prepare_config
-    from treedetection_tpu_torch.ops.kernels import pairwise as k234
-    from treedetection_tpu_torch.ops.kernels import roi_align as k1
     from treedetection_tpu_torch.parallel import mesh
     config, _ = prepare_config(pipeline_config(root), str(root))
     postprocessing.PAIR_KERNEL_CALLS.clear()
-    _reset_roi_launches(k1)                   # just before the main path
-    for mode in k234.launches:
-        k234.launches[mode] = 0
+    _launches(reset=True)                   # just before the main path
     t0 = time.time()
     outputs = detection.process_files(config)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {**_roi_launches(k1), **k234.launches}     # just after
+    launches = _launches(*ROI, *PAIRWISE)     # just after
     emit({"phase": "pipeline_multihost_host", "rank": mesh.process_index(),
           "warmup_forwards": sum(len(p._warm_pads) for p in config.get(
               "_predictor_cache", {}).values()),
@@ -2266,7 +2251,6 @@ def warmup_child(root: Path, mode: str) -> None:
     import treedetection_tpu_torch
     from treedetection_tpu_torch import build, detection, prediction
     from treedetection_tpu_torch.config import prepare_config
-    from treedetection_tpu_torch.ops.kernels import roi_align as k1
     cold = not build.BUILD_DIR.exists()
     images, threads = [], []
     predict_image = prediction.Predictor._predict_image
@@ -2290,12 +2274,12 @@ def warmup_child(root: Path, mode: str) -> None:
     prediction.Predictor._forward_chunk = recorded_chunk
     raw = dict(pipeline_config(root), compile_warmup=mode == "on")
     config, _ = prepare_config(raw, str(root))
-    _reset_roi_launches(k1)                   # just before the main path
+    _launches(reset=True)                   # just before the main path
     t0 = time.time()
     outputs = detection.process_files(config)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = _roi_launches(k1)              # just after
+    launches = _launches(*ROI)              # just after
     pred = config["_predictor_cache"][str(NPZ)]
     emit({"phase": "warmup_run", "compile_warmup": mode == "on",
           "package": str(Path(treedetection_tpu_torch.__file__).parent),
@@ -2453,7 +2437,6 @@ def phase_pipeline_two_model(state, workdir: Path):
     import torch
     from treedetection_tpu_torch import detection
     from treedetection_tpu_torch.config import Config, prepare_config
-    from treedetection_tpu_torch.ops.kernels import roi_align as k
     from treedetection_tpu_torch.utils.synthetic import (
         DISCS_PER_KM2, SHEET_ORIGIN, SHEET_PX, write_synthetic_sheet)
     from treedetection_tpu_torch.vector import read_gpkg
@@ -2498,13 +2481,13 @@ def phase_pipeline_two_model(state, workdir: Path):
     torch.cuda.empty_cache()
     base_gib = torch.cuda.memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
-    _reset_roi_launches(k)                    # just before the main path
+    _launches(reset=True)                    # just before the main path
     with layout_env("levels"):
         t0 = time.time()
         outputs = detection.process_files(config)
         torch.cuda.synchronize()
         wall = time.time() - t0
-    launches = _roi_launches(k)               # just after
+    launches = _launches(*ROI)               # just after
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     stages = dict(detection.LAST_STAGE_SECONDS)
 
@@ -2577,12 +2560,12 @@ def phase_pipeline_two_model(state, workdir: Path):
 
     # (1) a second call on the finished output predicts nothing
     config2 = make_config()
-    _reset_roi_launches(k)
+    _launches(reset=True)
     with layout_env("levels"):
         t0 = time.time()
         outputs2 = detection.process_files(config2)
         resume_s = time.time() - t0
-    counts = _roi_launches(k)
+    counts = _launches(*ROI)
     emit({"phase": "pipeline_two_model_resume", "seconds": resume_s,
           "launches": counts,
           "predictor_built": "_predictor_cache" in config2,
@@ -2603,13 +2586,13 @@ def phase_pipeline_two_model(state, workdir: Path):
     # TD_ROI_RESIDENT=1, against that phase's pass in the default layout
     pred = state["pred"]
     out_res = workdir / "pred_resident"
-    _reset_roi_launches(k)                    # just before the main path
+    _launches(reset=True)                    # just before the main path
     with layout_env("resident"):
         t0 = time.time()
         n_written = pred(str(state["tif"]), state["meta"], str(out_res))
         torch.cuda.synchronize()
         res_wall = time.time() - t0
-    counts = _roi_launches(k)                 # just after
+    counts = _launches(*ROI)                 # just after
     res_batches = math.ceil(n_written / pred.batch_size)
     flat, mine = _tile_files(state["pred_timed_dir"]), _tile_files(out_res)
     differ = sorted(name for name in flat if mine.get(name) != flat[name])
@@ -2846,7 +2829,6 @@ def phase_bench(state, workdir: Path, profile_dir=None):
 
     import torch
     from treedetection_tpu_torch import bench
-    from treedetection_tpu_torch.ops.kernels import roi_align as k1
     _clear_layout_env()
     for name in ("TD_PAIRS_DEVICE", "TD_BENCH_SKIP_PIPELINE",
                  "TD_BENCH_PIPELINE_PASSES"):
@@ -2854,7 +2836,7 @@ def phase_bench(state, workdir: Path, profile_dir=None):
     expected = bench_k1_launches(bench)
     out, err = io.StringIO(), io.StringIO()
     os.environ["BENCH_DETAIL"] = "1"
-    _reset_roi_launches(k1)                   # just before the main path
+    _launches(reset=True)                   # just before the main path
     t0 = time.time()
     try:
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
@@ -2864,7 +2846,7 @@ def phase_bench(state, workdir: Path, profile_dir=None):
         sys.stderr.write(err.getvalue())
         sys.stderr.flush()
     seconds = time.time() - t0
-    launches = _roi_launches(k1)              # just after
+    launches = _launches(*ROI)              # just after
     if rc != 0:
         fail(f"bench: exit {rc}")
     stages = []
@@ -2984,7 +2966,6 @@ def phase_train(state, workdir: Path):
         to_flax_params)
     from treedetection_tpu_torch.models.mask_rcnn import (
         MaskRCNN, MaskRCNNConfig)
-    from treedetection_tpu_torch.ops.kernels import roi_align as k1
     from treedetection_tpu_torch.train import TrainConfig, train_model
     from treedetection_tpu_torch.train.data import (
         ShardDataset, make_training_tiles, train_test_split, write_shards)
@@ -3094,10 +3075,10 @@ def phase_train(state, workdir: Path):
     if pred.used_random_init:
         fail("train: the trained checkpoint did not load")
     out = workdir / "pred_trained"
-    _reset_roi_launches(k1)               # just before the serving pass
+    _launches(reset=True)               # just before the serving pass
     written = pred(str(state["tif"]), state["meta"], str(out))
     torch.cuda.synchronize()
-    counts = _roi_launches(k1)            # just after
+    counts = _launches(*ROI)            # just after
     batches = int(prediction.LAST_RUN_STATS["batches"])
     files = sorted(out.glob("Prediction_*.json"))
     crowns = _count_crowns(files, "train")
@@ -3329,7 +3310,6 @@ def phase_train_sharded(state, workdir: Path):
         to_flax_params)
     from treedetection_tpu_torch.models.mask_rcnn import (
         MaskRCNN, create_model)
-    from treedetection_tpu_torch.ops.kernels import roi_align as k1
     from treedetection_tpu_torch.train import TrainConfig
     from treedetection_tpu_torch.train.train import (
         make_optimizer, make_train_step)
@@ -3412,10 +3392,10 @@ def phase_train_sharded(state, workdir: Path):
     if pred.used_random_init:
         fail("train_sharded: the trained checkpoint did not load")
     out = workdir / "pred_trained_sharded"
-    _reset_roi_launches(k1)               # just before the serving pass
+    _launches(reset=True)               # just before the serving pass
     written = pred(str(state["tif"]), state["meta"], str(out))
     torch.cuda.synchronize()
-    counts = _roi_launches(k1)            # just after
+    counts = _launches(*ROI)            # just after
     batches = int(prediction.LAST_RUN_STATS["batches"])
     files = sorted(out.glob("Prediction_*.json"))
     crowns = _count_crowns(files, "train_sharded")

@@ -7,11 +7,11 @@ import shutil
 
 import pytest
 
-from treedetection_tpu_torch import build
-from treedetection_tpu_torch.ops.kernels import (
+from treedetection_tpu_torch import build, native  # noqa: F401
+from treedetection_tpu_torch.ops.kernels import (  # noqa: F401
     pairwise, relpos_attention, roi_align)
 
-CSRC = roi_align._CSRC
+CSRC = build.CSRC
 # library -> the headers its source must hash (K1, K5 and K6 share
 # pool_box_bf16 and pool_box)
 LIBRARIES = {
@@ -26,9 +26,11 @@ LIBRARIES = {
 
 def test_libraries_cover_every_kernel_source():
     assert {p.stem for p in CSRC.glob("*.cu")} == set(LIBRARIES)
-    assert set(roi_align._ARG_TYPES) | {pairwise._SRC.stem,
-                                        relpos_attention._SRC.stem} == \
-        set(LIBRARIES)
+    cuda = {name: lib for name, lib in build.LIBRARIES.items()
+            if lib.compiler == "nvcc"}
+    assert set(cuda) == set(LIBRARIES)
+    assert all(lib.sources == (CSRC / f"{name}.cu",)
+               for name, lib in cuda.items())
 
 
 @pytest.mark.parametrize("name", sorted(LIBRARIES))
@@ -38,7 +40,7 @@ def test_an_edited_header_renames_exactly_its_libraries(tmp_path, name):
     header it does not include, the same one."""
     shutil.copytree(CSRC, tmp_path / "csrc")
     src = tmp_path / "csrc" / f"{name}.cu"
-    command = ["nvcc"] + roi_align.NVCC_FLAGS
+    command = ["nvcc", *build.LIBRARIES[name].flags]
     assert {p.name for p in build.local_headers([src])} == LIBRARIES[name]
     before = build.library_path(name, [src], command)
     assert before.parent == build.BUILD_DIR

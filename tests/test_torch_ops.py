@@ -179,10 +179,10 @@ def test_k1_plain_matches_pallas_interpret(resolution, dtype):
         np.testing.assert_array_equal(got.float().numpy(), want)
         assert np.abs(want).max() > 0.5
     # the wrapper takes the plain version for CPU tensors, without a launch
-    from treedetection_tpu_torch.ops.kernels import roi_align as k1
-    before = k1.launches
+    from treedetection_tpu_torch.build import launch_counts
+    before = launch_counts()["k1"]
     assert torch.equal(roi_pool_patches_flat(*args, resolution, patch), got)
-    assert k1.launches == before
+    assert launch_counts()["k1"] == before
 
 
 def test_hat_spans_match_numpy():

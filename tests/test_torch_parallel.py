@@ -387,7 +387,7 @@ def test_two_processes_match_single_host(single_host, tmp_path, init):
     which ``ensure_distributed`` initialises it.  The union of the
     processed crowns EQUALS the single-host run's, the manifests are sharded
     by rank, and every host logs the all-gathered totals."""
-    native.build()      # built once here, loaded by the children
+    native.LIBRARY.build()   # built once here, loaded by the children
     root = tmp_path / "grid"
     _write_grid(root)
     (root / "raw.json").write_text(json.dumps(_raw_config()))
@@ -459,19 +459,28 @@ def test_predictor_split_over_two_devices_equals_one(tmp_path):
         "too few crowns: the comparison is vacuous"
 
 
-def test_launch_counts_survive_concurrent_devices():
-    """The ROI wrappers count their launches under a lock, since a Predictor
-    over several devices launches from one thread per device: more threads
-    than cores, a short switch interval, and no increment lost."""
+def test_launch_counts_survive_concurrent_devices(monkeypatch):
+    """Launches are counted under a lock, since a Predictor over several
+    devices launches from one thread per device: more threads than cores,
+    a short switch interval, and no increment lost (K1's library stubbed,
+    the device and stream lookups no-ops)."""
     import threading
+    import types
+    from contextlib import nullcontext
+    from treedetection_tpu_torch import build
     from treedetection_tpu_torch.ops.kernels import roi_align as k
+    monkeypatch.setattr(build, "load", lambda library: types.SimpleNamespace(
+        td_roi_pool_flat=lambda *args: 0))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
     n_threads, each = 2 * (os.cpu_count() or 4), 500
-    before, old = k.launches, sys.getswitchinterval()
+    before, old = build.launch_counts()["k1"], sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        threads = [threading.Thread(
-            target=lambda: [k._count("launches") for _ in range(each)])
-            for _ in range(n_threads)]
+        threads = [threading.Thread(target=lambda: [
+            build.launch(k.FLAT, "td_roi_pool_flat", "cuda", count="k1")
+            for _ in range(each)]) for _ in range(n_threads)]
         for t in threads:
             t.start()
         for t in threads:
@@ -479,5 +488,4 @@ def test_launch_counts_survive_concurrent_devices():
         assert not any(t.is_alive() for t in threads)
     finally:
         sys.setswitchinterval(old)
-    assert k.launches == before + n_threads * each
-    k.launches = before
+    assert build.launch_counts()["k1"] == before + n_threads * each

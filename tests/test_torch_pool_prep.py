@@ -17,7 +17,11 @@ import numpy as np
 import pytest
 import torch
 
+from treedetection_tpu_torch import build
+from treedetection_tpu_torch.build import launch_counts
+from treedetection_tpu_torch.models.mask_rcnn import MaskRCNN, MaskRCNNConfig
 from treedetection_tpu_torch.ops import roi_align as port
+from treedetection_tpu_torch.ops.kernels import relpos_attention
 from treedetection_tpu_torch.ops.kernels import roi_align as kernels
 
 STRIDES = (4, 8, 16, 32)
@@ -377,14 +381,12 @@ def test_wrappers_take_the_plain_versions_on_the_cpu(monkeypatch):
     def no_library(*args, **kwargs):
         raise AssertionError("a kernel library was loaded for CPU tensors")
 
-    monkeypatch.setattr(kernels, "_get_fn", no_library)
-    counts = (kernels.launches_geometry, kernels.launches_exact_tail,
-              kernels.launches)
+    monkeypatch.setattr(build, "load", no_library)
+    counts = launch_counts()
     fmaps, boxes = _fmaps(10), _boxes(seed=12)
     out, _ = port.multilevel_roi_align_batched(fmaps, boxes, 7, STRIDES)
     assert out.shape == (2, 26, 7, 7, 16)
-    assert (kernels.launches_geometry, kernels.launches_exact_tail,
-            kernels.launches) == counts
+    assert launch_counts() == counts
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.roi_geometry(boxes.reshape(-1, 4), port.level_table(
             HS, HS, STRIDES, 2, "cpu").packed, 26, 7, 2, 48, True)
@@ -403,17 +405,26 @@ def test_k1_still_raises_for_odd_columns_on_the_cpu():
 
 
 def test_the_new_library_is_registered():
-    assert set(kernels._ARG_TYPES["roi_pool_prep"]) == {
-        "td_roi_geometry", "td_roi_exact_tail"}
-    assert (kernels._CSRC / "roi_pool_prep.cu").is_file()
-    source = (kernels._CSRC / "roi_pool_prep.cu").read_text()
-    for entry in kernels._ARG_TYPES["roi_pool_prep"]:
+    assert set(kernels.PREP.entries) == {"td_roi_geometry",
+                                         "td_roi_exact_tail"}
+    assert kernels.PREP.sources == (build.CSRC / "roi_pool_prep.cu",)
+    source = kernels.PREP.sources[0].read_text()
+    for entry in kernels.PREP.entries:
         assert f"int {entry}(" in source
     # the roofline metric finds K1's, K5's and K6's kernels by these names
     for name in ("roi_pool_flat", "roi_pool_levels", "roi_pool_resident"):
         assert name not in source
+    # what a warm-up builds: the pooler's libraries, and the attention's
+    # for the backbone that launches it
+    resnet = MaskRCNN(MaskRCNNConfig(depth=50, input_size=128))
+    vit = MaskRCNN(MaskRCNNConfig(backbone="vit", input_size=128, vit_dim=64,
+                                  vit_depth=1, vit_heads=1, vit_window=2,
+                                  vit_global_blocks=()))
     for layout, env in LAYOUT_ENV.items():
         with pytest.MonkeyPatch.context() as mp:
             for k, v in env.items():
                 mp.setenv(k, v)
-            assert "roi_pool_prep" in port.pooler_libraries(), layout
+            pooler = port.pooler_libraries()
+            assert kernels.PREP in pooler, layout
+            assert resnet.libraries() == pooler, layout
+            assert vit.libraries() == (relpos_attention.LIBRARY,) + pooler

@@ -19,6 +19,7 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from treedetection_tpu_torch.build import launch_counts  # noqa: E402
 from treedetection_tpu_torch.ops import roi_align as port  # noqa: E402
 from treedetection_tpu_torch.ops.kernels import roi_align as kernels  # noqa: E402
 
@@ -196,10 +197,10 @@ def test_k5_plain_matches_pallas_interpret(resolution, dtype, geometry):
     assert np.abs(want).max() > 0.1
     if geometry == "zero_hats":
         assert float(got[dead].float().abs().max()) == 0.0
-    before = kernels.launches_patches
+    before = launch_counts()["k5"]
     assert torch.equal(kernels.roi_pool_patches(p.kpadded, p.meta, p.ay, p.ax,
                                                 resolution), got)
-    assert kernels.launches_patches == before
+    assert launch_counts()["k5"] == before
 
 
 @pytest.mark.parametrize("c_split", [1, 2])
@@ -229,11 +230,11 @@ def test_k6_plain_matches_pallas_interpret(resolution, dtype, c_split):
     assert np.abs(want).max() > 0.1
     # padding boxes (zero hats, meta 0) pool to zeros
     assert float(got.reshape(2, 30, -1)[:, 26:].abs().max()) == 0.0
-    before = kernels.launches_resident
+    before = launch_counts()["k6"]
     assert torch.equal(kernels.roi_pool_resident(
         r.kpadded, r.meta, r.ay, r.ax, resolution, 48, r.chunk, 2, c_split),
         got)
-    assert kernels.launches_resident == before
+    assert launch_counts()["k6"] == before
 
 
 def test_k5_k6_wrappers_reject_bad_inputs():

@@ -6,6 +6,9 @@ weights and tiles):
         [--parts syncs,off,chrome] [--layouts flat,levels,resident]
         [--out DIR]
 
+Kernel launches are read from the one launch counter,
+``treedetection_tpu_torch.build.launch_counts``.
+
 ``syncs``: under ``torch.cuda.set_sync_debug_mode("warn")``, served batches
 with tracing on: every synchronizing call of the device thread, its site,
 and whether it lies inside an open ``sync.<site>`` span.  ``off``: one
@@ -26,8 +29,8 @@ on the host (``sync.k1_cols``), when it does not launch the pooler's
 geometry and exact-tail kernels and its layout's patch kernel twice each
 (box and mask pool), when a sync of the device thread lies inside a
 ViTDet backbone span (``vit.*``), when a ViTDet batch does not launch the
-attention kernel once per block (``relpos_attn.window``,
-``relpos_attn.global``: 20 and 4 for ViT-L), or when tracing off
+attention kernel once per block (``relpos.window``, ``relpos.global``:
+20 and 4 for ViT-L), or when tracing off
 enters a ``record_function``, makes a CUDA event beyond the batch's
 arrival events, makes a sync that tracing on does not count, or leaves
 anything in ``TRACE``.  With ``--out``, the Chrome trace, gzipped, there.
@@ -65,11 +68,7 @@ BACKBONE_PREFIX = "vit."
 DEVICE_THREAD = "td-device"
 LAYOUT_ENV = {"flat": {}, "levels": {"TD_ROI_FLAT": "0"},
               "resident": {"TD_ROI_RESIDENT": "1"}}
-# the pooler's kernel launch counters (ops/kernels/roi_align.py), and the
-# patch kernel each layout pools with
-ROI_COUNTERS = {"geometry": "launches_geometry",
-                "exact_tail": "launches_exact_tail", "k1": "launches",
-                "k5": "launches_patches", "k6": "launches_resident"}
+# the patch kernel's launch counter each layout pools with
 LAYOUT_KERNEL = {"flat": "k1", "levels": "k5", "resident": "k6"}
 # sync spans a served batch must not open at steady state
 NO_SYNC_SITES = ("sync.pool_h2d", "sync.k1_cols")
@@ -197,31 +196,30 @@ def serve_one(state, k: int = 0) -> int:
     return sum(event is not None for _, event in parts)
 
 
-def _roi_counts():
-    from treedetection_tpu_torch.ops.kernels import roi_align
-    return {k: getattr(roi_align, v) for k, v in ROI_COUNTERS.items()}
-
-
 def _attention_launches(model):
     """The attention kernel's launches a forward makes, by counter: one a
     block, windowed or global (none for a ResNet backbone)."""
     if getattr(model.cfg, "backbone", "resnet") != "vit":
         return {}
     glob = set(model.cfg.vit_global_blocks) & set(range(model.cfg.vit_depth))
-    return {"relpos_attn.window": model.cfg.vit_depth - len(glob),
-            "relpos_attn.global": len(glob)}
+    return {"relpos.window": model.cfg.vit_depth - len(glob),
+            "relpos.global": len(glob)}
 
 
 def part_syncs(state, batches: int, layout: str, problems):
     from torch.profiler import ProfilerActivity, profile
+
+    from treedetection_tpu_torch.build import launch_counts
     out = []
     for k in range(batches):
         profiling.trace_reset()
-        before = _roi_counts()
+        before = launch_counts()
         with profile(activities=[ProfilerActivity.CPU]):
             with SyncLog() as log:
                 serve_one(state, k)
-        launched = {n: c - before[n] for n, c in _roi_counts().items()}
+        launched = launch_counts() - before
+        attention = {n: launched.pop(n) for n in list(launched)
+                     if n.startswith("relpos.")}
         snap = profiling.trace_snapshot()
         record = snap["batches"][-1]
         device = log.device_calls()
@@ -232,11 +230,8 @@ def part_syncs(state, batches: int, layout: str, problems):
             "sync_spans": record["syncs"], "uncovered": len(uncovered),
             "sync_span_counts": {n: c for n, c in snap["counts"].items()
                                  if n.startswith(profiling.SYNC_PREFIX)},
-            "roi_launches": launched, "sites": log.summary(),
-            "record": record}
-        attention = {n: c for n, c in snap["counts"].items()
-                     if n.startswith("relpos_attn.")}
-        line["attention_launches"] = attention
+            "roi_launches": dict(launched), "sites": log.summary(),
+            "record": record, "attention_launches": attention}
         want_attention = _attention_launches(state["pred"].model)
         if attention != want_attention:
             problems.append(f"{layout} batch {k}: attention launches "

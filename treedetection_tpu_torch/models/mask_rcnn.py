@@ -29,6 +29,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from treedetection_tpu_torch.build import Library
 from treedetection_tpu_torch.models.anchors import pyramid_anchors
 from treedetection_tpu_torch.models.layers import (
     init_like_flax, set_compute_dtype)
@@ -38,7 +39,7 @@ from treedetection_tpu_torch.models.roi_heads import (
 from treedetection_tpu_torch.models.rpn import RPNHead, generate_proposals
 from treedetection_tpu_torch.models.vit import ViTDetBackbone
 from treedetection_tpu_torch.ops.roi_align import (
-    PoolFn, multilevel_roi_align_batched)
+    PoolFn, multilevel_roi_align_batched, pooler_libraries)
 
 FPN_STRIDES = (4, 8, 16, 32, 64)
 # the forward's stages, in order, as ``MaskRCNN.forward`` marks their ends
@@ -133,6 +134,12 @@ class MaskRCNN(nn.Module):
         self._anchors: Dict[torch.device, list] = {}
         if cfg.bf16:
             set_compute_dtype(self, torch.bfloat16)
+
+    def libraries(self) -> Tuple[Library, ...]:
+        """The native libraries the forward launches on the card: the
+        backbone's, and the pooler's under the layout the environment
+        selects now."""
+        return self.backbone.libraries + pooler_libraries()
 
     @property
     def compute_dtype(self) -> torch.dtype:

@@ -292,6 +292,8 @@ class FPN(nn.Module):
 class ResNetFPN(nn.Module):
     """(B, H, W, 3) NHWC -> [P2, P3, P4, P5, P6], each (B, H_l, W_l, 256)."""
 
+    libraries = ()      # launches no hand-written kernel
+
     def __init__(self, depth: int = 101, fpn_features: int = 256,
                  norm: str = "frozen", remat: bool = False):
         super().__init__()

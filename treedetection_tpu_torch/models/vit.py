@@ -45,7 +45,7 @@ from torch import nn
 from treedetection_tpu_torch.models.layers import (
     Conv2d, ConvLN, ConvTranspose2d, LayerNorm, LayerNorm2d, Linear)
 from treedetection_tpu_torch.ops.kernels.relpos_attention import (
-    relpos_attention)
+    LIBRARY, relpos_attention)
 from treedetection_tpu_torch.utils.profiling import span
 
 LN_EPS = 1e-6
@@ -218,6 +218,8 @@ class SimpleFeaturePyramid(nn.Module):
 
 class ViTDetBackbone(nn.Module):
     """(B, S, S, 3) NHWC -> [P2, P3, P4, P5, P6], each (B, H_l, W_l, out)."""
+
+    libraries = (LIBRARY,)     # the attention kernel's, launched on the card
 
     def __init__(self, img_size: int = 1024, patch: int = 16,
                  dim: int = 1024, depth: int = 24, num_heads: int = 16,

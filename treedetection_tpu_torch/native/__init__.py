@@ -6,62 +6,35 @@
 * ``td_lzw_decode`` — TIFF LZW fast path for the GeoTIFF codec
 * ``td_simplify_dp`` — Douglas-Peucker keep flags for crown rings
 
-The library is compiled from ``contour.cpp`` with g++ at first use into the
-package's build directory (``treedetection_tpu_torch.build``).  There is no
-fallback: a failed build raises.
+The library (``LIBRARY``) is compiled from ``contour.cpp`` with g++ at first
+use into the package's build directory and loaded there
+(``treedetection_tpu_torch.build``).  There is no fallback: a failed build
+raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 
-from treedetection_tpu_torch.build import build_shared_library
-
-_SRC = Path(__file__).resolve().parent / "contour.cpp"
-
-_lib: Optional[ctypes.CDLL] = None
-_lock = threading.Lock()
+from treedetection_tpu_torch.build import Library, load
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 
-
-def build() -> Path:
-    """Compile (or find) the host library; returns its path."""
-    return build_shared_library(
-        "td_native", [_SRC],
-        ["g++", "-O3", "-shared", "-fPIC", "-std=c++17"])
-
-
-def get_lib() -> ctypes.CDLL:
-    global _lib
-    if _lib is not None:
-        return _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.td_trace_contours.restype = ctypes.c_int
-            lib.td_trace_contours.argtypes = [
-                _U8P, ctypes.c_int, ctypes.c_int, _I32P, _I32P, _U8P,
-                ctypes.c_int, ctypes.c_int]
-            lib.td_resize_threshold.restype = ctypes.c_int
-            lib.td_resize_threshold.argtypes = [
-                _U8P, ctypes.c_int, ctypes.c_int, _U8P, ctypes.c_int,
-                ctypes.c_int, ctypes.c_float]
-            lib.td_lzw_decode.restype = ctypes.c_int
-            lib.td_lzw_decode.argtypes = [
-                _U8P, ctypes.c_long, _U8P, ctypes.c_long]
-            lib.td_simplify_dp.restype = ctypes.c_int
-            lib.td_simplify_dp.argtypes = [
-                ctypes.POINTER(ctypes.c_double), ctypes.c_int,
-                ctypes.c_double, _U8P]
-            _lib = lib
-    return _lib
+LIBRARY = Library(
+    "td_native", (Path(__file__).resolve().parent / "contour.cpp",), {
+        "td_trace_contours": [_U8P, ctypes.c_int, ctypes.c_int, _I32P, _I32P,
+                              _U8P, ctypes.c_int, ctypes.c_int],
+        "td_resize_threshold": [_U8P, ctypes.c_int, ctypes.c_int, _U8P,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_float],
+        "td_lzw_decode": [_U8P, ctypes.c_long, _U8P, ctypes.c_long],
+        "td_simplify_dp": [ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+                           ctypes.c_double, _U8P]},
+    flags=("-O3", "-shared", "-fPIC", "-std=c++17"), compiler="g++")
 
 
 def trace_contours(mask: np.ndarray, include_holes: bool = True
@@ -69,7 +42,7 @@ def trace_contours(mask: np.ndarray, include_holes: bool = True
     """Binary mask (H, W) -> list of (N, 2) integer (x, y) boundary rings."""
     mask = np.ascontiguousarray(mask.astype(np.uint8))
     h, w = mask.shape
-    lib = get_lib()
+    lib = load(LIBRARY)
     # border following visits a boundary pixel at most 4 times, so 4*h*w
     # bounds the total points; contour-count overflow retries with a larger
     # budget instead of silently truncating
@@ -101,7 +74,7 @@ def resize_threshold_mask(mask: np.ndarray, out_h: int, out_w: int,
     """Soft uint8 mask -> bilinear resize (half-pixel centers) -> 0/1 mask."""
     mask = np.ascontiguousarray(mask, dtype=np.uint8)
     out = np.empty((out_h, out_w), dtype=np.uint8)
-    get_lib().td_resize_threshold(
+    load(LIBRARY).td_resize_threshold(
         mask.ctypes.data_as(_U8P), mask.shape[0], mask.shape[1],
         out.ctypes.data_as(_U8P), out_h, out_w, ctypes.c_float(thresh))
     return out
@@ -111,7 +84,7 @@ def lzw_decode(data: bytes, expected: int) -> Optional[bytes]:
     """Native TIFF LZW decode; None when the decoder rejects the stream."""
     src = np.frombuffer(data, dtype=np.uint8)
     dst = np.empty(expected, dtype=np.uint8)
-    rc = get_lib().td_lzw_decode(
+    rc = load(LIBRARY).td_lzw_decode(
         src.ctypes.data_as(_U8P), len(data), dst.ctypes.data_as(_U8P),
         expected)
     if rc < 0:
@@ -125,7 +98,7 @@ def simplify_keep_flags(ring: np.ndarray, tolerance: float) -> np.ndarray:
     ring = np.ascontiguousarray(ring, dtype=np.float64)
     n = len(ring)
     keep = np.empty(n, dtype=np.uint8)
-    get_lib().td_simplify_dp(
+    load(LIBRARY).td_simplify_dp(
         ring.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), n,
         ctypes.c_double(tolerance * tolerance), keep.ctypes.data_as(_U8P))
     return keep.view(bool)

@@ -1,2 +1,3 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version and a count of its launches."""
+version; ``treedetection_tpu_torch.build`` builds, launches and counts
+them."""

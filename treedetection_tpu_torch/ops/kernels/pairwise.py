@@ -21,84 +21,41 @@ same relation as (R, ceil(N/8)) uint8 in numpy's ``packbits`` order
 (:func:`pack_bits_rows` of the mask), and :func:`relation_pairs` compacts
 such a block on the card to its (i, j) pairs in ``np.nonzero``'s order.
 
-The CUDA source is ``csrc/pairwise_boxes.cu``, compiled with nvcc for
-``sm_90a`` at first use and bound with ctypes: one relation kernel for K2,
-K3 and K4 (K2 and K3 in both forms, K4 as the uint8 mask), and the two
-compaction kernels.  Rounding
-decides a threshold test, so the source is built with ``-fmad=false`` and
-keeps the plain versions' order of operations; the relations are then equal
-bit for bit, which is what ``chip_smoke.py`` and the card tests check.  For a
-CUDA tensor a wrapper launches its kernel or raises; only tensors on the CPU
-take the plain versions (``*_reference``).
+The CUDA source is ``csrc/pairwise_boxes.cu`` (``LIBRARY``, built, bound
+and launched by ``treedetection_tpu_torch.build``; its launches count on the
+relation's name, on ``"pairs"``, one a compaction, and on ``"pairs.write"``):
+one relation kernel for K2, K3 and K4 (K2 and K3 in both forms, K4 as the
+uint8 mask), and the two compaction kernels.  Rounding decides a threshold
+test, so the source is built with ``-fmad=false`` and keeps the plain
+versions' order of operations; the relations are then equal bit for bit,
+which is what ``chip_smoke.py`` and the card tests check.  For a CUDA tensor
+a wrapper launches its kernel or raises; only tensors on the CPU take the
+plain versions (``*_reference``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
-from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from treedetection_tpu_torch.build import build_shared_library, nvcc_path
+from treedetection_tpu_torch.build import cuda_library, launch
 from treedetection_tpu_torch.ops.boxes import (
     box_iou_matrix, pairwise_intersection_over_area)
 
-_SRC = Path(__file__).resolve().parents[2] / "csrc" / "pairwise_boxes.cu"
-# -fmad=false: no FMA contraction, so every operation rounds as the plain
-# version's separate elementwise operations do (never -use_fast_math)
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _MODE = {"iou": 0, "containment": 1, "dedupe": 2}
-
-# kernel launches since the last reset, per mode (plain counts;
-# chip_smoke.py reads them to show the main path went through the kernel;
-# "dedupe" and "containment" count the relation kernel in either form, one
-# per call, and "pairs" one per relation_pairs call that compacts on the card)
-launches: Dict[str, int] = {"iou": 0, "containment": 0, "dedupe": 0,
-                            "pairs": 0}
-_count_lock = threading.Lock()
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
-_ARG_TYPES = {
+# -fmad=false: no FMA contraction, so every operation rounds as the plain
+# version's separate elementwise operations do (never -use_fast_math)
+LIBRARY = cuda_library("pairwise_boxes", {
     "td_pairwise_boxes": [_P, _P, _P, _I, _I, _I, _F, _F, _P],
     "td_pairwise_relation_bits": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
     "td_relation_row_counts": [_P, _L, _I, _I, _I, _I, _P, _P],
     "td_relation_pairs": [_P, _L, _I, _I, _I, _I, _P, _P, _P, _P],
-}
-
-_lib: Optional[ctypes.CDLL] = None
-_lock = threading.Lock()
-
-
-def _count(mode: str) -> None:
-    """One launch more on ``launches[mode]``: the crown filter calls the
-    wrappers from several threads."""
-    with _count_lock:
-        launches[mode] += 1
-
-
-def build() -> Path:
-    """Compile (or find) the kernel library; returns its path.  The
-    compiler's output (``-Xptxas -v``) is kept beside it as ``<name>.log``."""
-    return build_shared_library("pairwise_boxes", [_SRC],
-                                [nvcc_path()] + NVCC_FLAGS)
-
-
-def _get_lib() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        with _lock:
-            if _lib is None:
-                lib = ctypes.CDLL(str(build()))
-                for name, argtypes in _ARG_TYPES.items():
-                    fn = getattr(lib, name)
-                    fn.restype = ctypes.c_int
-                    fn.argtypes = argtypes
-                _lib = lib
-    return _lib
+}, "-fmad=false")
 
 
 def _check(name: str, t: torch.Tensor, width: int,
@@ -122,11 +79,6 @@ def _on_one_card(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {a.device}")
 
 
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} failed with CUDA error {rc}")
-
-
 def _launch_into(mode: str, a: torch.Tensor, b: torch.Tensor,
                  out: torch.Tensor, t0: float, t1: float, packed: bool,
                  clear_diagonal: bool = False) -> None:
@@ -134,22 +86,15 @@ def _launch_into(mode: str, a: torch.Tensor, b: torch.Tensor,
     into ``out``: with ``packed`` the (R, pitch) bit-packed block
     (``_bits_pitch``; column i of row i cleared with ``clear_diagonal``),
     else the (R, N) uint8 mask.  The wrappers' one launcher."""
-    lib = _get_lib()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0],
-                b.shape[0])
-        if packed:
-            entry = "td_pairwise_relation_bits"
-            rc = lib.td_pairwise_relation_bits(
-                *args, out.stride(0), _MODE[mode], float(t0), float(t1),
-                int(clear_diagonal), stream)
-        else:
-            entry = "td_pairwise_boxes"
-            rc = lib.td_pairwise_boxes(*args, _MODE[mode], float(t0),
-                                       float(t1), stream)
-    _raise_on(rc, f"{entry}({mode})")
-    _count(mode)
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0],
+            b.shape[0])
+    if packed:
+        launch(LIBRARY, "td_pairwise_relation_bits", a.device, *args,
+               out.stride(0), _MODE[mode], float(t0), float(t1),
+               int(clear_diagonal), count=mode)
+    else:
+        launch(LIBRARY, "td_pairwise_boxes", a.device, *args, _MODE[mode],
+               float(t0), float(t1), count=mode)
 
 
 def _launch(mode: str, a: torch.Tensor, b: torch.Tensor, t0: float,
@@ -376,15 +321,10 @@ def _pair_ends_into(bits: torch.Tensor, n_cols: int, row_offset: int,
                     ends: torch.Tensor) -> None:
     """Launch the count kernel into ``counts`` (R int64), then scan them into
     ``ends`` (the inclusive scan: row i's pairs end at ends[i])."""
-    lib = _get_lib()
-    with torch.cuda.device(bits.device):
-        stream = torch.cuda.current_stream(bits.device).cuda_stream
-        _raise_on(lib.td_relation_row_counts(
-            bits.data_ptr(), bits.stride(0), bits.shape[0], n_cols,
-            int(row_offset), int(drop_diagonal), counts.data_ptr(), stream),
-            "td_relation_row_counts")
-        _count("pairs")
-        torch.cumsum(counts, 0, out=ends)
+    launch(LIBRARY, "td_relation_row_counts", bits.device, bits.data_ptr(),
+           bits.stride(0), bits.shape[0], n_cols, int(row_offset),
+           int(drop_diagonal), counts.data_ptr(), count="pairs")
+    torch.cumsum(counts, 0, out=ends)
 
 
 def _pairs_into(bits: torch.Tensor, n_cols: int, row_offset: int,
@@ -392,14 +332,10 @@ def _pairs_into(bits: torch.Tensor, n_cols: int, row_offset: int,
                 out: torch.Tensor) -> None:
     """Launch the pairs kernel: row i's pairs into out[:, ends[i-1]:ends[i]]
     of the (2, ends[-1]) int32 ``out``."""
-    lib = _get_lib()
-    with torch.cuda.device(bits.device):
-        stream = torch.cuda.current_stream(bits.device).cuda_stream
-        _raise_on(lib.td_relation_pairs(
-            bits.data_ptr(), bits.stride(0), bits.shape[0], n_cols,
-            int(row_offset), int(drop_diagonal), ends.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), stream),
-            "td_relation_pairs")
+    launch(LIBRARY, "td_relation_pairs", bits.device, bits.data_ptr(),
+           bits.stride(0), bits.shape[0], n_cols, int(row_offset),
+           int(drop_diagonal), ends.data_ptr(), out[0].data_ptr(),
+           out[1].data_ptr(), count="pairs.write")
 
 
 def relation_pairs(bits: torch.Tensor, n_cols: int, row_offset: int = 0,

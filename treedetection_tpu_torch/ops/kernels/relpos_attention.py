@@ -17,13 +17,13 @@ map is padded up to a multiple of it as detectron2 pads the normed map with
 zeros: a pad token's q, k and v are the qkv bias, and the pad keys take
 part in the softmax (they are not masked).
 
-``csrc/relpos_attention.cu`` (compiled with nvcc for ``sm_90a`` at first
-use and bound with ctypes) does a whole block of a batch in one launch: it
-reads q, k and v by TMA in window-shaped boxes of the projection's output
-(the descriptors encoded on the host from the pointers and shapes, nothing
-read back) and the bias for the pad keys, and writes the output in place of
-the unpartitioned map, so no window is partitioned, padded or permuted in
-memory.  Its source says what bounds it and how its design answers.  For a
+``csrc/relpos_attention.cu`` (``LIBRARY``, built, bound and launched by
+``treedetection_tpu_torch.build``) does a whole block of a batch in one
+launch: it reads q, k and v by TMA in window-shaped boxes of the
+projection's output (the descriptors encoded on the host from the pointers
+and shapes, nothing read back) and the bias for the pad keys, and writes the
+output in place of the unpartitioned map, so no window is partitioned,
+padded or permuted in memory.  Its source says what bounds it and how its design answers.  For a
 CUDA tensor the wrapper launches it or raises (bfloat16 only, head size 64,
 16-byte aligned inputs); only a tensor on the CPU takes
 :func:`relpos_attention_reference`, the attention materialised in float32 as
@@ -33,47 +33,18 @@ detectron2's ``add_decomposed_rel_pos`` computes it.
 from __future__ import annotations
 
 import ctypes
-import threading
-from pathlib import Path
 
 import torch
 
-from treedetection_tpu_torch.build import build_shared_library, nvcc_path
-from treedetection_tpu_torch.utils import profiling
+from treedetection_tpu_torch.build import cuda_library, launch
 
-_SRC = Path(__file__).resolve().parents[2] / "csrc" / "relpos_attention.cu"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 HEAD_DIM = 64
 MAX_SIDE = 64
 
-# kernel launches since the last reset (plain counts; chip_smoke.py reads
-# them to show the main path went through the kernel)
-launches_relpos_window = 0
-launches_relpos_global = 0
-_count_lock = threading.Lock()
-
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARG_TYPES = [_P] * 4 + [_L, _L, _P] + [_I] * 6 + [ctypes.c_float, _P]
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def build() -> Path:
-    """Compile (or find) the kernel library; returns its path."""
-    return build_shared_library(_SRC.stem, [_SRC], [nvcc_path()] + NVCC_FLAGS)
-
-
-def _fn():
-    global _lib
-    if _lib is None:
-        with _lib_lock:
-            if _lib is None:
-                lib = ctypes.CDLL(str(build()))
-                lib.td_relpos_attention.restype = ctypes.c_int
-                lib.td_relpos_attention.argtypes = _ARG_TYPES
-                _lib = lib
-    return _lib.td_relpos_attention
+LIBRARY = cuda_library("relpos_attention", {
+    "td_relpos_attention": [_P] * 4 + [_L, _L, _P] + [_I] * 6
+    + [ctypes.c_float, _P]})
 
 
 def _check(qkv, bias, rel_h, rel_w, num_heads, window):
@@ -115,10 +86,9 @@ def relpos_attention(qkv: torch.Tensor, bias: torch.Tensor,
     dtype: each head's output, heads concatenated, before the projection.
 
     On the card: one launch of the kernel for the whole call (bfloat16
-    contiguous inputs, head size 64, window sides up to 64), counted in
-    ``launches_relpos_window`` or ``launches_relpos_global`` and, while
-    tracing is on, in ``relpos_attn.window`` / ``relpos_attn.global``.
-    Raises for what the kernel does not take; a tensor on the CPU takes
+    contiguous inputs, head size 64, window sides up to 64), counted on
+    ``relpos.window`` or ``relpos.global``.  Raises for what the kernel
+    does not take; a tensor on the CPU takes
     :func:`relpos_attention_reference`."""
     b, h, w, c, d, sh, sw = _check(qkv, bias, rel_h, rel_w, num_heads,
                                    window)
@@ -140,17 +110,10 @@ def relpos_attention(qkv: torch.Tensor, bias: torch.Tensor,
     out = torch.empty((b, h, w, c), dtype=qkv.dtype, device=qkv.device)
     table_stride = [t.stride(0) if t.dim() == 3 else 0
                     for t in (rel_h, rel_w)]
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        rc = _fn()(qkv.data_ptr(), bias.data_ptr(), rel_h.data_ptr(),
-                   rel_w.data_ptr(), *table_stride, out.data_ptr(), b, h, w,
-                   num_heads, sh, sw, d ** -0.5, stream)
-    if rc != 0:
-        raise RuntimeError(f"td_relpos_attention failed with CUDA error {rc}")
-    kind = "window" if window else "global"
-    with _count_lock:
-        globals()[f"launches_relpos_{kind}"] += 1
-    profiling.count(f"relpos_attn.{kind}")
+    launch(LIBRARY, "td_relpos_attention", qkv.device, qkv.data_ptr(),
+           bias.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(), *table_stride,
+           out.data_ptr(), b, h, w, num_heads, sh, sw, d ** -0.5,
+           count="relpos.window" if window else "relpos.global")
     return out
 
 

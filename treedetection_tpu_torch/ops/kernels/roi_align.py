@@ -44,13 +44,12 @@ two device functions: ``pool_box`` (``csrc/roi_pool_window.cuh``) pools a box
 in all three in float32; ``pool_box_bf16`` (``csrc/roi_pool_bf16.cuh``: the
 hats' span, ``cp.async`` staging, ``mma.sync``) pools a box in all three in
 bfloat16.  So K1, K5 and K6 are bit-equal on the same boxes in either dtype
-(K6's refolded hats are K1's shifted by its clamp).  Each source is compiled
-with nvcc for ``sm_90a`` at first use into the package's build directory
-(named by a hash that covers the headers it includes) and bound with
-ctypes.  For a CUDA tensor a wrapper launches its kernel or raises; only a
-tensor that lies on the CPU takes the plain PyTorch version beside it
-(``*_reference``), which the tests and ``chip_smoke.py`` hold the kernel
-against.
+(K6's refolded hats are K1's shifted by its clamp).  Each source is a
+library declared here (``FLAT``, ``LEVELS``, ``RESIDENT``, ``PREP``), built,
+bound and launched by ``treedetection_tpu_torch.build``.  For a CUDA tensor
+a wrapper launches its kernel or raises; only a tensor that lies on the CPU
+takes the plain PyTorch version beside it (``*_reference``), which the tests
+and ``chip_smoke.py`` hold the kernel against.
 
 Rounding, as in the TPU kernels (``roi_align_kernel.py:129-138``, ``:231-238``,
 ``:377-388``): the hats are rounded to the feature dtype; ``t = A_y . window``
@@ -64,18 +63,13 @@ only where another summation order flips a rounding.
 from __future__ import annotations
 
 import ctypes
-import threading
-from pathlib import Path
-from typing import Dict, Sequence
+from typing import Sequence
 
 import torch
 
-from treedetection_tpu_torch.build import build_shared_library, nvcc_path
+from treedetection_tpu_torch.build import cuda_library, launch
 from treedetection_tpu_torch.utils.profiling import span
 
-_CSRC = Path(__file__).resolve().parents[2] / "csrc"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 RESOLUTIONS = (7, 14)
 MAX_LEVELS = 4
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -95,65 +89,20 @@ H100_L2_BYTES = 50 * 1024 * 1024
 TABLE_COLUMNS = ("h", "w", "hp", "lvl_base", "flat_pitch", "level_pitch",
                  "stride", "max_r0", "max_c0")
 
-# kernel launches since the last reset (plain counts; chip_smoke.py reads
-# them to show the main path went through each kernel)
-launches = 0            # K1
-launches_patches = 0    # K5
-launches_resident = 0   # K6
-launches_geometry = 0   # roi_geometry
-launches_exact_tail = 0  # roi_exact_tail
-_count_lock = threading.Lock()
-
-
-def _count(name: str) -> None:
-    """One launch more on the counter ``name``: a Predictor over several
-    devices launches from one thread per device."""
-    with _count_lock:
-        globals()[name] += 1
-
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# library (csrc/<name>.cu) -> its C entry points and their argument types
-_ARG_TYPES = {
-    "roi_pool_flat": {
-        "td_roi_pool_flat": [_P] * 6 + [_I] * 7 + [_P]},
-    "roi_pool_levels": {
-        "td_roi_pool_levels": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 5 + [_P]},
-    "roi_pool_resident": {
-        "td_roi_pool_resident": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 8
-        + [_P]},
-    "roi_pool_prep": {
-        "td_roi_geometry": [_P, _P] + [_I] * 7 + [_P] * 14,
-        "td_roi_exact_tail": [_P, _P, _I, _I, _P, _P, _L, _P, _L]
-        + [_I] * 7 + [_P] * 3},
-}
-_libs: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
-
-
-def build(name: str = "roi_pool_flat") -> Path:
-    """Compile (or find) one kernel library (``roi_pool_flat``,
-    ``roi_pool_levels``, ``roi_pool_resident`` or ``roi_pool_prep``);
-    returns its path.  The compiler's output (``-Xptxas -v``
-    register/shared-memory report) is kept beside it as ``<name>.log``."""
-    if name not in _ARG_TYPES:
-        raise ValueError(f"unknown kernel library {name!r}")
-    return build_shared_library(name, [_CSRC / f"{name}.cu"],
-                                [nvcc_path()] + NVCC_FLAGS)
-
-
-def _get_fn(name: str, entry: str = ""):
-    """The C entry point ``entry`` (default ``td_<name>``) of the kernel
-    library ``name``, built and loaded at first use."""
-    if name not in _libs:
-        with _lock:
-            if name not in _libs:
-                lib = ctypes.CDLL(str(build(name)))
-                for fn_name, argtypes in _ARG_TYPES[name].items():
-                    fn = getattr(lib, fn_name)
-                    fn.restype = ctypes.c_int
-                    fn.argtypes = argtypes
-                _libs[name] = lib
-    return getattr(_libs[name], entry or f"td_{name}")
+# the libraries (csrc/<name>.cu), their C entries and argument types; the
+# launches count on "k1", "k5", "k6", "geometry" and "exact_tail"
+FLAT = cuda_library("roi_pool_flat", {
+    "td_roi_pool_flat": [_P] * 6 + [_I] * 7 + [_P]})
+LEVELS = cuda_library("roi_pool_levels", {
+    "td_roi_pool_levels": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 5 + [_P],
+    "td_roi_pool_bf16_smem_bytes": [_I]})
+RESIDENT = cuda_library("roi_pool_resident", {
+    "td_roi_pool_resident": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 8 + [_P]})
+PREP = cuda_library("roi_pool_prep", {
+    "td_roi_geometry": [_P, _P] + [_I] * 7 + [_P] * 14,
+    "td_roi_exact_tail": [_P, _P, _I, _I, _P, _P, _L, _P, _L] + [_I] * 7
+    + [_P] * 3})
 
 
 def _check_common(buffers: Sequence[torch.Tensor], index_tensors, ay, ax,
@@ -262,16 +211,10 @@ def roi_pool_patches_flat(fcat: torch.Tensor, rows: torch.Tensor,
                       device=fcat.device)
     if n == 0:
         return out
-    fn = _get_fn("roi_pool_flat")
-    with torch.cuda.device(fcat.device):
-        stream = torch.cuda.current_stream(fcat.device).cuda_stream
-        rc = fn(fcat.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-                ay.data_ptr(), ax.data_ptr(), out.data_ptr(), n, resolution,
-                patch, fcat.shape[0], fcat.shape[1], c,
-                _DTYPE_CODE[fcat.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"td_roi_pool_flat failed with CUDA error {rc}")
-    _count("launches")
+    launch(FLAT, "td_roi_pool_flat", fcat.device, fcat.data_ptr(),
+           rows.data_ptr(), cols.data_ptr(), ay.data_ptr(), ax.data_ptr(),
+           out.data_ptr(), n, resolution, patch, fcat.shape[0],
+           fcat.shape[1], c, _DTYPE_CODE[fcat.dtype], count="k1")
     return out
 
 
@@ -371,16 +314,10 @@ def roi_pool_patches(fmaps_padded: Sequence[torch.Tensor], meta: torch.Tensor,
                       device=first.device)
     if n == 0:
         return out
-    fn = _get_fn("roi_pool_levels")
-    bases, rows, widths = _level_arrays(fmaps_padded)
-    with torch.cuda.device(first.device):
-        stream = torch.cuda.current_stream(first.device).cuda_stream
-        rc = fn(bases, rows, widths, len(fmaps_padded), meta.data_ptr(),
-                ay.data_ptr(), ax.data_ptr(), out.data_ptr(), n, resolution,
-                patch, c, _DTYPE_CODE[first.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"td_roi_pool_levels failed with CUDA error {rc}")
-    _count("launches_patches")
+    launch(LEVELS, "td_roi_pool_levels", first.device,
+           *_level_arrays(fmaps_padded), len(fmaps_padded), meta.data_ptr(),
+           ay.data_ptr(), ax.data_ptr(), out.data_ptr(), n, resolution, patch,
+           c, _DTYPE_CODE[first.dtype], count="k5")
     return out
 
 
@@ -521,17 +458,11 @@ def roi_pool_resident(fmaps_padded: Sequence[torch.Tensor], meta: torch.Tensor,
                       device=first.device)
     if n == 0:
         return out
-    fn = _get_fn("roi_pool_resident")
-    bases, rows, widths = _level_arrays(fmaps_padded)
-    with torch.cuda.device(first.device):
-        stream = torch.cuda.current_stream(first.device).cuda_stream
-        rc = fn(bases, rows, widths, len(fmaps_padded), meta.data_ptr(),
-                ay.data_ptr(), ax.data_ptr(), out.data_ptr(), n_images,
-                n // n_images, chunk, c_split, resolution, patch, c,
-                _DTYPE_CODE[first.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"td_roi_pool_resident failed with CUDA error {rc}")
-    _count("launches_resident")
+    launch(RESIDENT, "td_roi_pool_resident", first.device,
+           *_level_arrays(fmaps_padded), len(fmaps_padded), meta.data_ptr(),
+           ay.data_ptr(), ax.data_ptr(), out.data_ptr(), n_images,
+           n // n_images, chunk, c_split, resolution, patch, c,
+           _DTYPE_CODE[first.dtype], count="k6")
     return out
 
 
@@ -614,15 +545,9 @@ def roi_geometry(boxes: torch.Tensor, table: torch.Tensor, n_per_image: int,
            empty((2, n) if flat else (n, 3), torch.int32))
     if n == 0:
         return out
-    fn = _get_fn("roi_pool_prep", "td_roi_geometry")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(boxes.data_ptr(), table.data_ptr(), table.shape[0], n,
-                n_per_image, resolution, sampling_ratio, patch, int(flat),
-                *[t.data_ptr() for t in out], stream)
-    if rc != 0:
-        raise RuntimeError(f"td_roi_geometry failed with CUDA error {rc}")
-    _count("launches_geometry")
+    launch(PREP, "td_roi_geometry", dev, boxes.data_ptr(), table.data_ptr(),
+           table.shape[0], n, n_per_image, resolution, sampling_ratio, patch,
+           int(flat), *[t.data_ptr() for t in out], count="geometry")
     return out
 
 
@@ -685,18 +610,12 @@ def roi_exact_tail(buffers: Sequence[torch.Tensor], flat: bool,
                          f"{resolution}, sampling ratio {sampling_ratio}")
     if b * m == 0:
         return
-    fn = _get_fn("roi_pool_prep", "td_roi_exact_tail")
     ptrs = (ctypes.c_void_p * MAX_LEVELS)(
         *[f.data_ptr() for f in buffers],
         *[None] * (MAX_LEVELS - len(buffers)))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ptrs, table.data_ptr(), table.shape[0], int(flat),
-                boxes.data_ptr(), idx.data_ptr(),
-                idx.stride(0), flag.data_ptr(), flag.stride(0), b, m,
-                n_boxes // b, resolution, sampling_ratio, c,
-                _DTYPE_CODE[first.dtype], out.data_ptr(),
-                0 if sel is None else sel.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"td_roi_exact_tail failed with CUDA error {rc}")
-    _count("launches_exact_tail")
+    launch(PREP, "td_roi_exact_tail", dev, ptrs, table.data_ptr(),
+           table.shape[0], int(flat), boxes.data_ptr(), idx.data_ptr(),
+           idx.stride(0), flag.data_ptr(), flag.stride(0), b, m, n_boxes // b,
+           resolution, sampling_ratio, c, _DTYPE_CODE[first.dtype],
+           out.data_ptr(), 0 if sel is None else sel.data_ptr(),
+           count="exact_tail")

@@ -43,10 +43,12 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from treedetection_tpu_torch.build import Library
 from treedetection_tpu_torch.config import LOGGER_NAME
 from treedetection_tpu_torch.ops.kernels.roi_align import (
-    TABLE_COLUMNS, resident_l2_budget, resident_section_bytes, roi_exact_tail,
-    roi_geometry, roi_pool_patches, roi_pool_patches_flat, roi_pool_resident)
+    FLAT, LEVELS, PREP, RESIDENT, TABLE_COLUMNS, resident_l2_budget,
+    resident_section_bytes, roi_exact_tail, roi_geometry, roi_pool_patches,
+    roi_pool_patches_flat, roi_pool_resident)
 from treedetection_tpu_torch.ops.nms import stable_topk
 from treedetection_tpu_torch.utils.profiling import span
 
@@ -700,19 +702,19 @@ def pooler_layout() -> str:
     return "flat" if os.environ.get("TD_ROI_FLAT", "1") == "1" else "levels"
 
 
-def pooler_libraries() -> Tuple[str, ...]:
-    """The kernel libraries (``ops.kernels.roi_align.build`` names) that
-    ``multilevel_roi_align_batched`` launches on the card under the layout
-    the environment selects now: the geometry and exact-tail kernels and the
-    layout's pooler; the resident layout pools a small patch class, where
-    ``TD_ROI_SMALL`` turns one on, through K5."""
+def pooler_libraries() -> Tuple[Library, ...]:
+    """The kernel libraries that ``multilevel_roi_align_batched`` launches
+    on the card under the layout the environment selects now: the geometry
+    and exact-tail kernels and the layout's pooler; the resident layout
+    pools a small patch class, where ``TD_ROI_SMALL`` turns one on, through
+    K5."""
     layout = pooler_layout()
     if layout == "flat":
-        return ("roi_pool_prep", "roi_pool_flat")
+        return (PREP, FLAT)
     if layout == "levels" or not any(     # the box and the mask pool
             _class_params(1, r)[0] for r in (7, 14)):
-        return ("roi_pool_prep", f"roi_pool_{layout}")
-    return ("roi_pool_prep", "roi_pool_resident", "roi_pool_levels")
+        return (PREP, LEVELS if layout == "levels" else RESIDENT)
+    return (PREP, RESIDENT, LEVELS)
 
 
 def multilevel_roi_align_batched(fmaps: Sequence[torch.Tensor],

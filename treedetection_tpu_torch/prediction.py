@@ -63,10 +63,7 @@ from treedetection_tpu_torch.models.mask_rcnn import (
     STAGES, MaskRCNN, MaskRCNNConfig, ModelOutput)
 from treedetection_tpu_torch.native import resize_threshold_mask, trace_contours
 from treedetection_tpu_torch.ops.image import normalize_image, resize_bilinear
-from treedetection_tpu_torch.ops.kernels import relpos_attention
-from treedetection_tpu_torch.ops.kernels import roi_align as roi_kernels
-from treedetection_tpu_torch.ops.roi_align import (
-    pooler_libraries, report_overflow_host)
+from treedetection_tpu_torch.ops.roi_align import report_overflow_host
 from treedetection_tpu_torch.parallel.mesh import (
     dispatch_executor, make_mesh, replicate, sharded_forward)
 from treedetection_tpu_torch.preprocessing import load_tile_metadata
@@ -365,23 +362,17 @@ class Predictor:
 
     def warmup(self, pad: int) -> None:
         """Do the first use's work for ``pad`` ahead of the first batch:
-        build the kernel libraries that the forward loads (the pooler of the
-        layout the environment selects, on the card, and ViTDet's attention
-        kernel) and the native library
-        that ``flush`` loads, concurrently, then run one forward of a zero
+        build the libraries that the forward loads on the card
+        (``MaskRCNN.libraries``) and the native library that ``flush``
+        loads, concurrently, then run one forward of a zero
         (batch_size, pad, pad, 3) batch on the device thread(s) and wait for
         it, which sets up each thread's cuDNN/cuBLAS state.  Called from the
         compile-warmup thread; also useful to front-load that cost."""
         t0 = time.time()
-        libs = pooler_libraries() if self.device.type == "cuda" else ()
-        attention = (self.device.type == "cuda"
-                     and self.cfg.backbone == "vit")
-        with ThreadPoolExecutor(max_workers=2 + len(libs)) as builds:
-            futures = [builds.submit(native.build)] + [
-                builds.submit(roi_kernels.build, name) for name in libs]
-            if attention:
-                futures.append(builds.submit(relpos_attention.build))
-            for f in futures:
+        libs = (native.LIBRARY,) + (self.model.libraries()
+                                    if self.device.type == "cuda" else ())
+        with ThreadPoolExecutor(max_workers=len(libs)) as builds:
+            for f in [builds.submit(lib.build) for lib in libs]:
                 f.result()
         forward, _ = self._get_forward(pad)
         zeros = np.zeros((self.batch_size, pad, pad, 3), dtype=np.uint8)

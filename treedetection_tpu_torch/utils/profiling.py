@@ -2,15 +2,16 @@
 ``treedetection_tpu/utils/profiling.py``; the trace is ``torch.profiler``'s).
 
 Besides the JAX package's ``StageTimer`` and ``profile_trace``, one span
-and counter facility for the serving path.  :class:`Span` is the stopwatch
-of every span, ``StageTimer``'s included; while tracing is on, which is
-exactly while a ``torch.profiler`` session runs anywhere in the process
-(the benchmark's traced segment, the Predictor's ``profile_dir``), a span
-also enters ``torch.profiler.record_function``, so it lands on the
-profiler's clock in any trace that records its thread, and records into
-the process-wide :class:`Trace` ``TRACE``.  :func:`span` and :func:`count`
-are the calls of the serving path: off, each costs one read of a global
-bool, creates no CUDA event and makes no sync.
+facility for the serving path.  :class:`Span` is the stopwatch of every
+span, ``StageTimer``'s included; while tracing is on, which is exactly
+while a ``torch.profiler`` session runs anywhere in the process (the
+benchmark's traced segment, the Predictor's ``profile_dir``), a span also
+enters ``torch.profiler.record_function``, so it lands on the profiler's
+clock in any trace that records its thread, and records into the
+process-wide :class:`Trace` ``TRACE``, which counts the spans of each name.
+:func:`span` is the call of the serving path: off, it costs one read of a
+global bool, creates no CUDA event and makes no sync.  (Kernel launches are
+counted, always, by ``treedetection_tpu_torch.build.launch_counts``.)
 
 ``TRACE`` also keeps one record per batch forward (:func:`trace_batch`):
 its queue and host seconds, the count and seconds of its ``sync.<site>``
@@ -109,13 +110,6 @@ def span(name: str, timed: bool = False):
     return _OFF
 
 
-def count(name: str, n: int = 1) -> None:
-    """``n`` more of the counter ``name`` in ``TRACE`` while tracing is
-    on."""
-    if tracing():
-        TRACE.count(name, n)
-
-
 # -- per-batch records ----------------------------------------------------------
 
 class BatchRecord:
@@ -198,10 +192,6 @@ class Trace:
         record = getattr(self.local, "batch", None)
         if record is not None:
             record.add(name, seconds)
-
-    def count(self, name: str, n: int) -> None:
-        with self.lock:
-            self.counts[name] = self.counts.get(name, 0) + n
 
     def finish(self, record: BatchRecord) -> None:
         with self.lock:
