@@ -51,7 +51,20 @@ pipeline_two_model,bench,train,train_sharded,eval,autolabel,trace:
                rounds p to bf16 before p.v and the output once), its card,
                alone and plain milliseconds, its bound, and as a yardstick
                only ``F.scaled_dot_product_attention`` with the bias
-               materialised (``library_ms``; the port never calls it).
+               materialised (``library_ms``; the port never calls it);
+               the ResNet backbone's frozen-norm epilogue
+               (``frozen_norm``, both forms) against the unfused PyTorch
+               operations BIT FOR BIT at every distinct shape of R101's
+               and R50's backbones at batch 10 and 1024^2, in bf16 and
+               float32, and on edge inputs (NaN, +-inf, +-0 in the map, the
+               shortcut and the parameters), with its card, alone and
+               plain milliseconds and its bytes bound per shape and per
+               forward; channel counts that do not fill its 16-byte
+               vectors and pointers off a 16-byte boundary raise and
+               launch nothing; then whole R101 and R50 backbones on the
+               card, the kernel's forward bit-equal to the unfused one run
+               with gradients on, which launches it 0 times (67 + 33 and
+               33 + 16 without).
 3. predictor — the port's Predictor (R50-FPN, 1024^2, batch 10, 512
                proposals, bf16) on a synthetic 1000x1000 px RGBI GeoTIFF
                tiled into 16 tiles: a first pass, then a timed pass with the
@@ -169,6 +182,9 @@ pipeline_two_model,bench,train,train_sharded,eval,autolabel,trace:
                ViTDet-L batch launches the attention kernel 20 times for
                the windowed blocks and 4 times for the global ones, and no
                sync of the device thread lies inside a ``vit.*`` span.
+               Each served R101 batch launches the frozen-norm epilogue
+               67 + 33 times, a ViTDet batch 0 times, and no batch launches
+               a counted kernel beyond these and the pooler's.
 11. kernels  — the per-kernel summary line, then the card's name and power
                limit, then the final status line.
 
@@ -281,6 +297,7 @@ def _launches(*names, reset=False):
 
 ROI = ("k1", "k5", "k6")
 PAIRWISE = ("iou", "containment", "dedupe", "pairs")
+NORMS = ("frozen_norm", "frozen_norm.tail")   # E's ReLU and tail forms
 
 
 # --- phase 1: build ----------------------------------------------------------
@@ -288,7 +305,7 @@ PAIRWISE = ("iou", "containment", "dedupe", "pairs")
 def phase_build(state):
     from treedetection_tpu_torch import build, native  # noqa: F401
     from treedetection_tpu_torch.ops.kernels import (  # noqa: F401
-        pairwise, relpos_attention, roi_align)
+        frozen_norm, pairwise, relpos_attention, roi_align)
     results, errors = {}, {}
 
     def run(name, fn):
@@ -308,7 +325,8 @@ def phase_build(state):
     if errors:
         fail(f"build: {errors}")
     ptxas = {}
-    for name in ROI_LIBRARIES + ("pairwise_boxes", "relpos_attention"):
+    for name in ROI_LIBRARIES + ("pairwise_boxes", "relpos_attention",
+                                 "frozen_norm"):
         log = results[name][0].with_suffix(".log")
         ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
                        if "registers" in ln or "spill" in ln or "smem" in ln]
@@ -336,12 +354,13 @@ def phase_build(state):
     state["bf16_ptxas"] = bf16_ptxas
     state["relation_ptxas"] = relation
     state["relpos_ptxas"] = ptxas["relpos_attention"]
+    state["frozen_norm_ptxas"] = ptxas["frozen_norm"]
     import re
-    spills = [int(n) for ln in ptxas["relpos_attention"]
-              for n in re.findall(r"(\d+) bytes spill", ln)]
-    if not spills or any(spills):
-        fail(f"build: the attention kernel spills: "
-             f"{ptxas['relpos_attention']}")
+    for name in ("relpos_attention", "frozen_norm"):
+        spills = [int(n) for ln in ptxas[name]
+                  for n in re.findall(r"(\d+) bytes spill", ln)]
+        if not spills or any(spills):
+            fail(f"build: {name} spills: {ptxas[name]}")
     if sorted(relation) != sorted(RELATION_FORMS):
         fail(f"build: relation_kernel instances {sorted(relation)}, "
              f"expected {sorted(RELATION_FORMS)}")
@@ -957,6 +976,277 @@ def phase_kernel_relpos(state):
             fail(f"kernel: relpos_attention {kind}: {r}")
 
 
+# --- the ResNet backbone's frozen-norm epilogue ------------------------------
+
+FROZEN_NORM_BATCH, FROZEN_NORM_SIDE = 10, 1024    # the R101 cell's backbone
+# edge maps beside the backbone's shapes: (name, (N, C, H, W), pointers off
+# a 16-byte boundary); the wrapper refuses a channel count its 16-byte
+# vectors do not fill (12 in bf16, 3 in both) and an unaligned pointer
+FROZEN_NORM_EDGES = (
+    ("specials_c64", (2, 64, 3, 5), False),
+    ("specials_c12", (2, 12, 3, 5), False),     # fp32: 3 vectors; bf16 raises
+    ("specials_c24", (3, 24, 5, 7), False),     # bf16: 3 vectors of channels
+    ("specials_c3", (2, 3, 4, 4), False),       # raises
+    ("specials_c64_unaligned", (2, 64, 3, 5), True),    # raises
+)
+FROZEN_NORM_SPECIALS = (float("nan"), float("inf"), float("-inf"), 0.0, -0.0,
+                        1.0, -1.0, 3.5, -2.25, 1e-30, 65504.0, 3e38)
+# whole backbones held against their unfused forward: (depth, batch, side)
+FROZEN_NORM_BACKBONES = ((101, 2, 256), (50, 2, 256))
+
+
+def frozen_norm_layers(depth: int, side: int = FROZEN_NORM_SIDE):
+    """{(form, C, H, W): launches a forward} of a ResNet-``depth`` backbone
+    on a side^2 input, by shape: the stem and each conv1 and conv2 in the
+    ReLU form, each bottleneck's tail with its projection (the first of a
+    stage) or the block's input.  Fails where its totals are not
+    ``frozen_norm_launches``'s."""
+    from treedetection_tpu_torch.models.resnet import (STAGE_BLOCKS,
+                                                       frozen_norm_launches)
+    layers = {("relu", 64, side // 2, side // 2): 1}
+    width, out, s = 64, 256, side // 4
+    for stage, n in enumerate(STAGE_BLOCKS[depth]):
+        s = s if stage == 0 else s // 2
+        for key, k in ((("relu", width, s, s), 2 * n),
+                       (("tail_projected", out, s, s), 1),
+                       (("tail", out, s, s), n - 1)):
+            if k:
+                layers[key] = layers.get(key, 0) + k
+        width, out = width * 2, out * 2
+    totals = {"frozen_norm": 0, "frozen_norm.tail": 0}
+    for (form, *_), k in layers.items():
+        totals["frozen_norm" if form == "relu" else "frozen_norm.tail"] += k
+    if totals != frozen_norm_launches(depth):
+        fail(f"kernel: frozen_norm R{depth} shapes count {totals}, the "
+             f"backbone {frozen_norm_launches(depth)}")
+    return layers
+
+
+def frozen_norm_bytes(form: str, n: int, c: int, item: int) -> int:
+    """Bytes the epilogue must move: the map read and written (and the
+    shortcut read in the tail), and the parameters read once."""
+    maps = 2 if form == "relu" else 3
+    params = 4 if form == "tail_projected" else 2
+    return (maps * n + params * c) * item
+
+
+def _frozen_norm_inputs(gen, shape, dtype, form, special=False,
+                        unaligned=False):
+    """-> (y, [scale, bias], shortcut, [its scale, bias]): a channels_last
+    map, scales of about 1 and biases of about 0, the shortcut in the tail
+    forms and its parameters in the projected one; with ``special`` a third
+    of every element drawn from FROZEN_NORM_SPECIALS, with ``unaligned``
+    each one element past a 16-byte boundary."""
+    import torch
+    b, c, h, w = shape
+    dev = torch.device("cuda", 0)
+
+    def draw(size, mean, std):
+        t = torch.randn(size, generator=gen, device=dev) * std + mean
+        if special:
+            pick = torch.randint(0, len(FROZEN_NORM_SPECIALS), size,
+                                 generator=gen, device=dev)
+            put = torch.rand(size, generator=gen, device=dev) < 1 / 3
+            vals = torch.tensor(FROZEN_NORM_SPECIALS, device=dev)[pick]
+            t = torch.where(put, vals, t)
+        return t.to(dtype)
+
+    def place(t):
+        if t.dim() == 4:
+            t = t.contiguous(memory_format=torch.channels_last)
+        return _unaligned_copy(t) if unaligned else t
+
+    y = place(draw(shape, 0.0, 1.0))
+    params = [place(draw((c,), 1.0, 0.5)), place(draw((c,), 0.0, 0.5))]
+    if form == "relu":
+        return y, params, None, []
+    sc = place(draw(shape, 0.0, 1.0))
+    sc_params = ([place(draw((c,), 1.0, 0.5)), place(draw((c,), 0.0, 0.5))]
+                 if form == "tail_projected" else [])
+    return y, params, sc, sc_params
+
+
+def _unaligned_copy(t):
+    """``t``'s values at its strides, one element past a 16-byte
+    boundary."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    m = buf.as_strided(t.shape, t.stride(), 1)
+    m.copy_(t)
+    return m
+
+
+def _frozen_norm_calls(form, y, params, sc, sc_params):
+    """(the wrapper on ``y``, in place; the plain version) of ``form``."""
+    from treedetection_tpu_torch.ops.kernels import frozen_norm as fn
+    if form == "relu":
+        return (lambda: fn.frozen_norm_relu(y, *params),
+                lambda: fn.frozen_norm_relu_reference(y, *params))
+    return (lambda: fn.frozen_norm_tail(y, *params, sc, *sc_params),
+            lambda: fn.frozen_norm_tail_reference(y, *params, sc, *sc_params))
+
+
+def _bit_mismatches(got, want) -> int:
+    """Elements whose bits differ (a NaN compared by its bits)."""
+    import torch
+    as_int = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return int((got.view(as_int[got.dtype])
+                != want.view(as_int[want.dtype])).sum())
+
+
+def _frozen_norm_once(form, y, params, sc, sc_params):
+    """-> (bit mismatches of one launch on a copy of ``y`` against the plain
+    version, or None where the wrapper raised; the launches it made by
+    counter)."""
+    import torch
+    plain = _frozen_norm_calls(form, y, params, sc, sc_params)[1]()
+    work = _unaligned_copy(y) if y.data_ptr() % 16 else y.clone()
+    _launches(reset=True)
+    try:
+        got = _frozen_norm_calls(form, work, params, sc, sc_params)[0]()
+    except ValueError:
+        return None, _launches(*NORMS)
+    torch.cuda.synchronize()
+    launched = _launches(*NORMS)
+    if got.data_ptr() != work.data_ptr():
+        fail(f"kernel: frozen_norm {form}: the result is not in place")
+    return _bit_mismatches(got, plain), launched
+
+
+def phase_kernel_frozen_norm(state):
+    """The frozen-norm epilogue in both forms against the unfused PyTorch
+    operations, bit for bit: at every distinct shape of the R101 and R50
+    backbones at batch 10 and 1024^2 (timed: the wrapper, the kernel alone,
+    the plain version, the bytes bound), on edge inputs, and in whole
+    backbones against their forward with gradients on."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    layers = {d: frozen_norm_layers(d) for d in (101, 50)}
+    shapes = sorted(set(layers[101]) | set(layers[50]))
+    rows, problems = {}, []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        item = torch.tensor([], dtype=dtype).element_size()
+        for form, c, h, w in shapes:
+            shape = (FROZEN_NORM_BATCH, c, h, w)
+            inputs = _frozen_norm_inputs(gen, shape, dtype, form)
+            mism, launched = _frozen_norm_once(form, *inputs)
+            want = {"frozen_norm": int(form == "relu"),
+                    "frozen_norm.tail": int(form != "relu")}
+            kernel, plain = _frozen_norm_calls(form, *inputs)
+            row = {"form": form, "shape": list(shape), "dtype": dname,
+                   "mismatches": mism, "launched": launched,
+                   "ms": _timed_ms(kernel),
+                   "alone_ms": _device_ms(kernel, "frozen_norm_kernel",
+                                          iters=10),
+                   "plain_ms": _timed_ms(plain, warmup=2, iters=10),
+                   "bound_ms": frozen_norm_bytes(
+                       form, inputs[0].numel(), c, item)
+                   / H100_BYTES_PER_S * 1e3,
+                   "per_forward": {f"r{d}": layers[d].get((form, c, h, w), 0)
+                                   for d in (101, 50)}}
+            rows[f"{form}/{c}x{h}x{w}/{dname}"] = row
+            emit({"phase": "kernel", "kernel": "frozen_norm", **row})
+            if mism is None or mism or launched != want:
+                problems.append(f"{form} {shape} {dname}: {mism} bit "
+                                f"mismatches, launches {launched}")
+            del inputs, kernel, plain
+            torch.cuda.empty_cache()
+    forwards = {}
+    for d in (101, 50):
+        for dname in ("bfloat16", "float32"):
+            per = [(rows[f"{f}/{c}x{h}x{w}/{dname}"], k)
+                   for (f, c, h, w), k in layers[d].items()]
+            forwards[f"r{d}/{dname}"] = {
+                "ms": sum(r["ms"] * k for r, k in per),
+                "alone_ms": (sum(r["alone_ms"] * k for r, k in per)
+                             if all(r["alone_ms"] for r, _ in per) else None),
+                "bound_ms": sum(r["bound_ms"] * k for r, k in per),
+                "plain_ms": sum(r["plain_ms"] * k for r, k in per)}
+            emit({"phase": "kernel", "kernel": "frozen_norm",
+                  "per_forward_of": f"R{d} backbone, batch "
+                                    f"{FROZEN_NORM_BATCH}, "
+                                    f"{FROZEN_NORM_SIDE}^2, {dname}",
+                  **forwards[f"r{d}/{dname}"]})
+    edges = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        vector = 16 // torch.tensor([], dtype=dtype).element_size()
+        for name, shape, unaligned in FROZEN_NORM_EDGES:
+            refused = unaligned or shape[1] % vector != 0
+            for form in ("relu", "tail", "tail_projected"):
+                inputs = _frozen_norm_inputs(gen, shape, dtype, form,
+                                             special=True,
+                                             unaligned=unaligned)
+                mism, launched = _frozen_norm_once(form, *inputs)
+                key = f"{name}/{form}/{dname}"
+                edges[key] = {"mismatches": mism, "launched": launched,
+                              "raised": mism is None,
+                              "pointer_mod_16": inputs[0].data_ptr() % 16}
+                if refused != (mism is None) or mism or \
+                        sum(launched.values()) != int(not refused):
+                    problems.append(f"edge {key}: {edges[key]}, expected "
+                                    f"{'a raise' if refused else 'a launch'}")
+    emit({"phase": "kernel", "kernel": "frozen_norm", "edges": edges})
+    state["frozen_norm"] = {"shapes": rows, "forwards": forwards,
+                            "edges": edges,
+                            "backbones": _frozen_norm_backbones(problems)}
+    if problems:
+        fail(f"kernel: frozen_norm: {problems}")
+
+
+def _frozen_norm_backbones(problems):
+    """Whole backbones on the card with their norms drawn at random: the
+    forward without gradients (the kernel) against the same forward with
+    gradients on (the unfused operations, no launch), bit for bit, under
+    cuDNN's deterministic algorithms."""
+    import torch
+    from treedetection_tpu_torch.models.resnet import (
+        FrozenBN, ResNetFPN, frozen_norm_launches)
+    dev = torch.device("cuda", 0)
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for depth, b, side in FROZEN_NORM_BACKBONES:
+            for dtype in (torch.bfloat16, torch.float32):
+                torch.manual_seed(depth)
+                model = ResNetFPN(depth=depth)
+                for m in model.modules():
+                    if isinstance(m, FrozenBN):
+                        m.scale.data = torch.rand(m.scale.shape) + 0.5
+                        m.bias.data = torch.randn(m.bias.shape) * 0.5
+                model = model.eval().to(device=dev, dtype=dtype)
+                x = torch.randn((b, side, side, 3), device=dev).to(dtype)
+                _launches(reset=True)
+                with torch.no_grad():
+                    fused = model(x)
+                torch.cuda.synchronize()
+                on = _launches(*NORMS, reset=True)
+                with torch.enable_grad():
+                    plain = model(x)
+                torch.cuda.synchronize()
+                off = _launches(*NORMS)
+                want = frozen_norm_launches(depth)
+                mism = sum(_bit_mismatches(f, p.detach())
+                           for f, p in zip(fused, plain))
+                key = f"r{depth}/{str(dtype).split('.')[-1]}"
+                out[key] = {"input": [b, side, side, 3], "launched": on,
+                            "launched_with_gradients": off,
+                            "mismatches": mism}
+                emit({"phase": "kernel", "kernel": "frozen_norm",
+                      "backbone": key, **out[key]})
+                if on != want or any(off.values()) or mism:
+                    problems.append(f"backbone {key}: {out[key]}; launches "
+                                    f"expected {want}, and none with "
+                                    f"gradients")
+                del model, x, fused, plain
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
 def _geometry_box_sets(rng):
     """name -> (B, N, 4) float32 boxes for the geometry kernel's check."""
     b, n = 10, 512
@@ -1541,11 +1831,12 @@ def phase_predictor(state, workdir: Path):
     written = pred(str(tif), meta, str(out2))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = _launches(*ROI)            # just after
+    counts = _launches(*ROI, *NORMS)    # just after
     launches = counts["k1"]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     stats = dict(prediction.LAST_RUN_STATS)
     batches = int(stats["batches"])
+    norms = {n: counts[n] for n in NORMS}
     files = sorted(out2.glob("Prediction_*.json"))
     crowns = _count_crowns(files, "predictor")
     first = sorted(out1.glob("Prediction_*.json"))
@@ -1556,10 +1847,12 @@ def phase_predictor(state, workdir: Path):
            "wall_s": wall, "first_pass_s": first_s, "load_s": load_s,
            "crowns": crowns, "roi_overflow": int(stats["roi_overflow"]),
            "prop_overflow": int(stats["prop_overflow"]),
-           "k1_launches": launches, "peak_device_gib": peak_gib,
+           "k1_launches": launches, "norm_launches": norms,
+           "peak_device_gib": peak_gib,
            "host_stats_s": {k: stats[k] for k in (
                "dispatch_s", "fetch_s", "flush_s", "wall_s")}}
     emit(row)
+    _check_norm_launches("predictor", norms, batches, cfg["model_depth"])
     if written != 16 or len(files) != 16:
         fail(f"predictor: wrote {written} tiles, {len(files)} files")
     if crowns == 0:
@@ -1859,6 +2152,16 @@ def _crown_multiset(gpkg_path):
     return sorted(rows), props, srs
 
 
+def _check_norm_launches(phase, norms, forwards, depth):
+    """Fails unless ``forwards`` ResNet-``depth`` forwards launched the
+    frozen-norm epilogue as often as the backbone says."""
+    from treedetection_tpu_torch.models.resnet import frozen_norm_launches
+    want = {n: c * forwards for n, c in frozen_norm_launches(depth).items()}
+    if norms != want:
+        fail(f"{phase}: frozen-norm launches {norms} for {forwards} "
+             f"forwards of R{depth}, expected {want}")
+
+
 def _check_pair_launches(phase, launches, pair_calls):
     """K2 and K3 launched once per row block of the crown counts in
     ``pair_calls``, and relation_pairs once per block of either."""
@@ -1912,7 +2215,7 @@ def phase_pipeline(state, workdir: Path):
     outputs = detection.process_files(config)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = _launches(*ROI, *PAIRWISE)     # just after
+    launches = _launches(*ROI, *PAIRWISE, *NORMS)     # just after
     pair_calls = list(postprocessing.PAIR_KERNEL_CALLS)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     stages = dict(detection.LAST_STAGE_SECONDS)
@@ -1976,6 +2279,8 @@ def phase_pipeline(state, workdir: Path):
         fail(f"pipeline: ROI launches {launches} for {batches} batches and "
              f"{warmups} warm-up forward in the default layout (expected K1 "
              f"twice per forward, no other)")
+    _check_norm_launches("pipeline", {n: launches[n] for n in NORMS},
+                         batches + warmups, config["model_depth"])
     _check_pair_launches("pipeline", launches, pair_calls)
     state["pipeline"] = row
     state["pipeline_inputs"] = root
@@ -2847,6 +3152,7 @@ def phase_bench(state, workdir: Path, profile_dir=None):
         sys.stderr.flush()
     seconds = time.time() - t0
     launches = _launches(*ROI)              # just after
+    norms = _launches(*NORMS)
     if rc != 0:
         fail(f"bench: exit {rc}")
     stages = []
@@ -2864,7 +3170,7 @@ def phase_bench(state, workdir: Path, profile_dir=None):
     line = _bench_line("bench", out.getvalue(), bench.MODEL_KEYS
                        | bench.BAND_KEYS | bench.PIPELINE_KEYS)
     row = {"phase": "bench", "seconds": seconds, "launches": launches,
-           "k1_expected": expected, "line": line}
+           "k1_expected": expected, "norm_launches": norms, "line": line}
     emit(row)
     if line["pipeline_tiles"] != BENCH_SHEET_TILES \
             or line["pipeline_crowns"] <= 0:
@@ -3661,13 +3967,16 @@ def phase_trace(state):
     t0 = time.time()
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                           timeout=900)
-    verdict = None
+    verdict, norms = None, {}
     for text in proc.stdout.splitlines():
         if not text.startswith("{"):
             continue
         line = json.loads(text)
         if line.get("part") == "verdict":
             verdict = line
+        if "norm_launches" in line:
+            norms[f"r101/{line['layout']}/batch{line['batch']}"] = \
+                line["norm_launches"]
         line.pop("sites", None)
         line.pop("record", None)
         emit({"phase": "trace", **line})
@@ -3691,6 +4000,9 @@ def phase_trace(state):
         line = json.loads(text)
         if line.get("part") == "verdict":
             verdict = line
+        if "norm_launches" in line:
+            norms[f"vitdet/{line['layout']}/batch{line['batch']}"] = \
+                line["norm_launches"]
         line.pop("sites", None)
         line.pop("record", None)
         emit({"phase": "trace", "cell": "vitdet_l_tile_stream", **line})
@@ -3699,6 +4011,7 @@ def phase_trace(state):
     if proc.returncode != 0 or verdict is None or not verdict["ok"]:
         fail(f"trace_check (vitdet): rc {proc.returncode}, "
              f"{verdict['problems'] if verdict else proc.stderr[-2000:]}")
+    state["trace_norm_launches"] = norms      # by served batch
 
 
 def phase_autolabel(state, workdir: Path):
@@ -4013,6 +4326,29 @@ def kernels_line(state):
                               "64 x 64 tokens, 16 heads of 64, bf16",
             "by_kind": relpos, "edges": state.get("relpos_edges"),
             "ptxas": state.get("relpos_ptxas")})
+    norms = state.get("frozen_norm")
+    if norms:
+        r101 = norms["forwards"]["r101/bfloat16"]
+        kernels.append({
+            "name": "frozen_norm", "number": "E", "route": "cuda",
+            "source": "treedetection_tpu_torch/csrc/frozen_norm.cu",
+            "replaces": None,
+            "replaces_note": "no TPU kernel: the ResNet backbone's frozen "
+                             "norms, shortcut adds and ReLUs (XLA fuses "
+                             "them into the convolutions)",
+            "ms": r101["ms"], "alone_ms": r101["alone_ms"],
+            "bound_ms": r101["bound_ms"], "plain_ms": r101["plain_ms"],
+            "mismatches": sum(r["mismatches"] for r in
+                              norms["shapes"].values()),
+            "per_forward_of": "the R101 backbone at batch 10, 1024^2, bf16",
+            "launches_by_path": {
+                "predictor": state["predictor"]["norm_launches"],
+                "pipeline": {n: pipe["launches"][n] for n in NORMS},
+                "bench": state["bench"]["norm_launches"],
+                "trace": state["trace_norm_launches"]},
+            "by_forward": norms["forwards"], "edges": norms["edges"],
+            "backbones": norms["backbones"],
+            "ptxas": state.get("frozen_norm_ptxas")})
     return {"kernels": kernels}
 
 
@@ -4086,6 +4422,7 @@ def main() -> None:
             phase_kernel_prep(state)
             phase_kernel_pairwise(state)
             phase_kernel_relpos(state)
+            phase_kernel_frozen_norm(state)
         if "predictor" in phases:
             phase_predictor(state, work)
             phase_predictor_levels(state, work)

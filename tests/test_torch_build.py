@@ -9,7 +9,7 @@ import pytest
 
 from treedetection_tpu_torch import build, native  # noqa: F401
 from treedetection_tpu_torch.ops.kernels import (  # noqa: F401
-    pairwise, relpos_attention, roi_align)
+    frozen_norm, pairwise, relpos_attention, roi_align)
 
 CSRC = build.CSRC
 # library -> the headers its source must hash (K1, K5 and K6 share
@@ -21,6 +21,7 @@ LIBRARIES = {
     "roi_pool_prep": set(),
     "pairwise_boxes": set(),
     "relpos_attention": set(),
+    "frozen_norm": set(),
 }
 
 

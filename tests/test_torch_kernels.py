@@ -1,6 +1,7 @@
 """K1, K5, K6 (the flat, per-level and image-resident ROIAlign patch poolers),
-the batched pooler's geometry and exact-tail kernels, and K2/K3/K4 (the
-pairwise box-relation masks) on the card against their plain versions.
+the batched pooler's geometry and exact-tail kernels, K2/K3/K4 (the
+pairwise box-relation masks) and the backbone's frozen-norm epilogue on the
+card against their plain versions.
 
 These tests need an NVIDIA GPU: they carry the ``gpu`` marker and skip
 elsewhere.  On the card: ``python -m pytest tests/test_torch_kernels.py``.
@@ -13,6 +14,7 @@ import torch
 from treedetection_tpu_torch import build
 from treedetection_tpu_torch.build import launch_counts
 from treedetection_tpu_torch.ops import roi_align as ra
+from treedetection_tpu_torch.ops.kernels import frozen_norm as fn
 from treedetection_tpu_torch.ops.kernels import pairwise as k234
 from treedetection_tpu_torch.ops.kernels import roi_align as k1
 from treedetection_tpu_torch.ops.roi_align import (
@@ -870,3 +872,71 @@ def test_pairwise_mask_into_an_unaligned_block(cuda, mode, shift):
     ref = _plain_mask_any(mode, boxes, areas, (0, 77), thr)
     assert torch.equal(out.cpu(), ref)
     assert (flat[:shift] == 7).all() and (flat[shift + 77 * n:] == 7).all()
+
+
+SPECIALS = (float("nan"), float("inf"), float("-inf"), 0.0, -0.0, 1.0, -1.0,
+            3.5, 3e38)
+
+
+def _special(shape, cuda, seed, mean):
+    """Normal values about ``mean`` with a third of them from SPECIALS."""
+    gen = torch.Generator().manual_seed(seed)
+    t = torch.randn(shape, generator=gen) * 0.5 + mean
+    put = torch.rand(shape, generator=gen) < 1 / 3
+    pick = torch.randint(0, len(SPECIALS), shape, generator=gen)
+    return torch.where(put, torch.tensor(SPECIALS)[pick], t).to(cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("form", ["relu", "tail", "tail_projected"])
+@pytest.mark.parametrize("shape", [(2, 64, 5, 7), (2, 16, 3, 5),
+                                   (3, 24, 4, 4), (1, 8, 2, 2)])
+def test_frozen_norm_equals_the_unfused_operations(cuda, dtype, form, shape):
+    """Both forms of the frozen-norm epilogue EQUAL the unfused PyTorch
+    operations bit for bit, NaN, infinities and signed zeros included, and
+    write the result in place."""
+    def card_map(seed):
+        return _special(shape, cuda, seed, 0.0).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+    c = shape[1]
+    params = [_special((c,), cuda, 3, 1.0).to(dtype),
+              _special((c,), cuda, 4, 0.0).to(dtype)]
+    y, sc = card_map(1), card_map(2)
+    sc_params = ([_special((c,), cuda, 5, 1.0).to(dtype),
+                  _special((c,), cuda, 6, 0.0).to(dtype)]
+                 if form == "tail_projected" else [])
+    if form == "relu":
+        want = fn.frozen_norm_relu_reference(y, *params)
+        work = y.clone()
+        got = fn.frozen_norm_relu(work, *params)
+    else:
+        want = fn.frozen_norm_tail_reference(y, *params, sc, *sc_params)
+        work = y.clone()
+        got = fn.frozen_norm_tail(work, *params, sc, *sc_params)
+    torch.cuda.synchronize()
+    as_int = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert got.data_ptr() == work.data_ptr()
+    assert torch.equal(got.view(as_int), want.view(as_int))
+
+
+def test_frozen_norm_raises_instead_of_falling_back(cuda):
+    before = launch_counts()
+    y = torch.zeros((1, 8, 2, 2), device=cuda, dtype=torch.bfloat16)
+    s = torch.ones(8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="channels_last"):
+        fn.frozen_norm_relu(y, s, s)       # NCHW memory
+    y = y.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fn.frozen_norm_relu(y.half(), s, s)
+    with pytest.raises(ValueError, match="shortcut"):
+        fn.frozen_norm_tail(y, s, s, y.float())
+    y12 = torch.zeros((1, 12, 2, 2), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fn.frozen_norm_relu(y12.contiguous(memory_format=torch.channels_last),
+                            s[:1].expand(12).contiguous(),
+                            s[:1].expand(12).contiguous())
+    off = torch.zeros(y.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="y must start"):
+        fn.frozen_norm_relu(off.as_strided(y.shape, y.stride(), 1), s, s)
+    assert launch_counts() == before

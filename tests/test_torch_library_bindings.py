@@ -14,7 +14,7 @@ import pytest
 
 from treedetection_tpu_torch import build, native
 from treedetection_tpu_torch.ops.kernels import (  # noqa: F401
-    pairwise, relpos_attention, roi_align)
+    frozen_norm, pairwise, relpos_attention, roi_align)
 
 _EXTERN_C = re.compile(r'extern "C" \{(.*?)\}  // extern "C"', re.S)
 _ENTRY = re.compile(r"^int (td_\w+)\(([^)]*)\)", re.M)
@@ -46,7 +46,7 @@ def test_every_bound_cuda_entry_is_in_its_source():
     bound = {entry: name for name, lib in build.LIBRARIES.items()
              if lib.compiler == "nvcc" for entry in lib.entries}
     assert bound == {entry: lib for entry, (lib, _) in C_ENTRIES.items()}
-    assert len(bound) == 11
+    assert len(bound) == 12
 
 
 @pytest.mark.parametrize("entry", sorted(C_ENTRIES))
@@ -70,6 +70,7 @@ COMMANDS = {
     "roi_pool_resident": ["nvcc"] + NVCC,
     "roi_pool_prep": ["nvcc"] + NVCC,
     "relpos_attention": ["nvcc"] + NVCC,
+    "frozen_norm": ["nvcc"] + NVCC,
     "pairwise_boxes": ["nvcc"] + NVCC[:4] + ["-fmad=false"] + NVCC[4:],
     "td_native": ["g++", "-O3", "-shared", "-fPIC", "-std=c++17"],
 }

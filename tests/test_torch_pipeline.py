@@ -307,7 +307,8 @@ def test_port_never_imports_jax_statically():
     sources = sorted((PORT / "csrc").glob("*.cu*")) + \
         sorted((PORT / "native").glob("*.cpp"))
     assert [p.name for p in sources] == [
-        "pairwise_boxes.cu", "relpos_attention.cu", "roi_pool_bf16.cuh",
+        "frozen_norm.cu", "pairwise_boxes.cu", "relpos_attention.cu",
+        "roi_pool_bf16.cuh",
         "roi_pool_flat.cu",
         "roi_pool_levels.cu", "roi_pool_prep.cu", "roi_pool_resident.cu",
         "roi_pool_window.cuh", "contour.cpp"]

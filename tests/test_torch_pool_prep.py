@@ -21,7 +21,7 @@ from treedetection_tpu_torch import build
 from treedetection_tpu_torch.build import launch_counts
 from treedetection_tpu_torch.models.mask_rcnn import MaskRCNN, MaskRCNNConfig
 from treedetection_tpu_torch.ops import roi_align as port
-from treedetection_tpu_torch.ops.kernels import relpos_attention
+from treedetection_tpu_torch.ops.kernels import frozen_norm, relpos_attention
 from treedetection_tpu_torch.ops.kernels import roi_align as kernels
 
 STRIDES = (4, 8, 16, 32)
@@ -414,8 +414,8 @@ def test_the_new_library_is_registered():
     # the roofline metric finds K1's, K5's and K6's kernels by these names
     for name in ("roi_pool_flat", "roi_pool_levels", "roi_pool_resident"):
         assert name not in source
-    # what a warm-up builds: the pooler's libraries, and the attention's
-    # for the backbone that launches it
+    # what a warm-up builds: the pooler's libraries, and the attention's or
+    # the frozen norm's for the backbone that launches it
     resnet = MaskRCNN(MaskRCNNConfig(depth=50, input_size=128))
     vit = MaskRCNN(MaskRCNNConfig(backbone="vit", input_size=128, vit_dim=64,
                                   vit_depth=1, vit_heads=1, vit_window=2,
@@ -426,5 +426,6 @@ def test_the_new_library_is_registered():
                 mp.setenv(k, v)
             pooler = port.pooler_libraries()
             assert kernels.PREP in pooler, layout
-            assert resnet.libraries() == pooler, layout
+            assert resnet.libraries() == (frozen_norm.LIBRARY,) + pooler, \
+                layout
             assert vit.libraries() == (relpos_attention.LIBRARY,) + pooler

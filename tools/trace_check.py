@@ -27,10 +27,13 @@ batch record's sync count differs from the syncs seen, when a served batch
 copies level geometry to the card (``sync.pool_h2d``) or checks K1's columns
 on the host (``sync.k1_cols``), when it does not launch the pooler's
 geometry and exact-tail kernels and its layout's patch kernel twice each
-(box and mask pool), when a sync of the device thread lies inside a
+(box and mask pool) and the frozen-norm epilogue once per ReLU conv and
+once per bottleneck of a ResNet backbone (``frozen_norm``,
+``frozen_norm.tail``: 67 and 33 for R101; none for ViTDet), or launches
+any other counted kernel, when a sync of the device thread lies inside a
 ViTDet backbone span (``vit.*``), when a ViTDet batch does not launch the
-attention kernel once per block (``relpos.window``, ``relpos.global``:
-20 and 4 for ViT-L), or when tracing off
+attention kernel once per block (``relpos.window``, ``relpos.global``: 20
+and 4 for ViT-L), or when tracing off
 enters a ``record_function``, makes a CUDA event beyond the batch's
 arrival events, makes a sync that tracing on does not count, or leaves
 anything in ``TRACE``.  With ``--out``, the Chrome trace, gzipped, there.
@@ -206,6 +209,16 @@ def _attention_launches(model):
             "relpos.global": len(glob)}
 
 
+def _norm_launches(model):
+    """The frozen-norm epilogue's launches a forward makes, by counter
+    (none for a ViT backbone)."""
+    from treedetection_tpu_torch.models.resnet import frozen_norm_launches
+    want = frozen_norm_launches(model.cfg.depth)
+    if getattr(model.cfg, "backbone", "resnet") != "resnet":
+        return dict.fromkeys(want, 0)
+    return want
+
+
 def part_syncs(state, batches: int, layout: str, problems):
     from torch.profiler import ProfilerActivity, profile
 
@@ -220,6 +233,8 @@ def part_syncs(state, batches: int, layout: str, problems):
         launched = launch_counts() - before
         attention = {n: launched.pop(n) for n in list(launched)
                      if n.startswith("relpos.")}
+        want_norms = _norm_launches(state["pred"].model)
+        norms = {n: launched[n] for n in want_norms}
         snap = profiling.trace_snapshot()
         record = snap["batches"][-1]
         device = log.device_calls()
@@ -230,8 +245,10 @@ def part_syncs(state, batches: int, layout: str, problems):
             "sync_spans": record["syncs"], "uncovered": len(uncovered),
             "sync_span_counts": {n: c for n, c in snap["counts"].items()
                                  if n.startswith(profiling.SYNC_PREFIX)},
-            "roi_launches": dict(launched), "sites": log.summary(),
-            "record": record, "attention_launches": attention}
+            "roi_launches": {n: c for n, c in launched.items()
+                             if c and n not in want_norms},
+            "sites": log.summary(), "record": record,
+            "attention_launches": attention, "norm_launches": norms}
         want_attention = _attention_launches(state["pred"].model)
         if attention != want_attention:
             problems.append(f"{layout} batch {k}: attention launches "
@@ -247,10 +264,11 @@ def part_syncs(state, batches: int, layout: str, problems):
                 problems.append(f"{layout} batch {k}: "
                                 f"{line['sync_span_counts'][site]} {site} "
                                 f"syncs at steady state")
-        want = {"geometry": 2, "exact_tail": 2, LAYOUT_KERNEL[layout]: 2}
+        want = {"geometry": 2, "exact_tail": 2, LAYOUT_KERNEL[layout]: 2,
+                **{n: c for n, c in want_norms.items() if c}}
         if {n: c for n, c in launched.items() if c} != want:
-            problems.append(f"{layout} batch {k}: pooler launches "
-                            f"{launched}, expected {want}")
+            problems.append(f"{layout} batch {k}: launches {launched}, "
+                            f"expected {want}")
         if uncovered:
             problems.append(f"{layout} batch {k}: {len(uncovered)} syncs "
                             f"outside a sync span")

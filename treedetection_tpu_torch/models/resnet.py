@@ -24,6 +24,15 @@ takes (B, H, W, 3) and returns [P2..P6] as (B, H_l, W_l, 256).  Inside, the
 tensors are NCHW in channels_last memory, so both conversions are free views.
 No W-folding and no scanned blocks: those exist for the TPU's MXU and
 compiler.
+
+On the card, where no gradient is recorded (the Predictor), a frozen norm
+runs in the same pass as what follows it (``ops.kernels.frozen_norm``): the
+ReLU of the stem, ``conv1`` and ``conv2``, and in a bottleneck's tail
+``conv3``'s norm, the projection shortcut's norm, the shortcut add and the
+ReLU.  The result is bit-equal to the unfused operations, which every other
+case runs: the CPU, training with batch norm, and the blocks of frozen
+fine-tuning whose input or parameters record a gradient (a frozen stage
+whose input records none takes the kernel, with the same result).
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from treedetection_tpu_torch.models.layers import Conv2d
+from treedetection_tpu_torch.ops.kernels import frozen_norm
 
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 BN_MOMENTUM = 0.9     # Flax's convention: running = m * running + (1-m) * batch
@@ -54,9 +64,23 @@ class FrozenBN(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = x.dtype
-        return (x * self.scale.to(dt)[:, None, None]
-                + self.bias.to(dt)[:, None, None])
+        return frozen_norm.frozen_norm_reference(x, self.scale, self.bias)
+
+
+def _fused(module: nn.Module, x: torch.Tensor) -> bool:
+    """Whether ``module`` (a :class:`ConvBN` or :class:`Bottleneck` whose
+    norms are :class:`FrozenBN`) finishes its convs with the frozen-norm
+    kernel on ``x``: on the card, with no gradient recorded."""
+    return x.device.type == "cuda" and not (torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in module.parameters())))
+
+
+def frozen_norm_launches(depth: int) -> Dict[str, int]:
+    """The frozen-norm kernel's launches a ResNet-``depth`` forward makes
+    where :func:`_fused` holds, by counter: the stem and each bottleneck's
+    ``conv1`` and ``conv2`` in the ReLU form, each bottleneck's tail."""
+    blocks = sum(STAGE_BLOCKS[depth])
+    return {"frozen_norm": 1 + 2 * blocks, "frozen_norm.tail": blocks}
 
 
 # the collector of the forward that runs under collect_batch_stats(), if any
@@ -204,8 +228,12 @@ class ConvBN(nn.Module):
         else:
             raise ValueError(f"unknown norm {norm!r}")
         self.relu = relu
+        self.frozen = norm == "frozen"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.relu and self.frozen and _fused(self, x):
+            return frozen_norm.frozen_norm_relu(self.conv(x), self.norm.scale,
+                                                self.norm.bias)
         x = self.norm(self.conv(x))
         return F.relu(x) if self.relu else x
 
@@ -229,9 +257,23 @@ class Bottleneck(nn.Module):
                             norm=norm, zero_gamma=norm == "batch")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv3.frozen and _fused(self, x):
+            return self._fused_forward(x)
         shortcut = x if self.shortcut is None else self.shortcut(x)
         y = self.conv3(self.conv2(self.conv1(x)))
         return F.relu(y + shortcut.to(y.dtype))
+
+    def _fused_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward with ``conv3``'s and the shortcut's norms, the add
+        and the ReLU in one launch of the tail kernel."""
+        shortcut, shortcut_norm = x, ()
+        if self.shortcut is not None:
+            shortcut = self.shortcut.conv(x)
+            shortcut_norm = (self.shortcut.norm.scale, self.shortcut.norm.bias)
+        y = self.conv3.conv(self.conv2(self.conv1(x)))
+        return frozen_norm.frozen_norm_tail(
+            y, self.conv3.norm.scale, self.conv3.norm.bias, shortcut,
+            *shortcut_norm)
 
 
 class ResNet(nn.Module):
@@ -292,7 +334,8 @@ class FPN(nn.Module):
 class ResNetFPN(nn.Module):
     """(B, H, W, 3) NHWC -> [P2, P3, P4, P5, P6], each (B, H_l, W_l, 256)."""
 
-    libraries = ()      # launches no hand-written kernel
+    # the frozen-norm kernel's, launched on the card
+    libraries = (frozen_norm.LIBRARY,)
 
     def __init__(self, depth: int = 101, fpn_features: int = 256,
                  norm: str = "frozen", remat: bool = False):
