@@ -52,6 +52,14 @@ pipeline_two_model,bench,train,train_sharded,eval,autolabel,trace:
                alone and plain milliseconds, its bound, and as a yardstick
                only ``F.scaled_dot_product_attention`` with the bias
                materialised (``library_ms``; the port never calls it);
+               MViTv2's pooled attention kernel (``pooled_attention``) at
+               the ``mvitv2_t_tile_stream`` cell's ten blocks (batch 10,
+               heads of 96, bf16: q and kv maps of their own sizes,
+               windows with pad keys, global blocks) and two edges, its
+               output against the plain version in float32 on the same
+               inputs, its card, alone and plain milliseconds, its bound
+               and, as a yardstick only, ``F.scaled_dot_product_attention``
+               with the bias materialised (``library_ms``);
                the ResNet backbone's frozen-norm epilogue
                (``frozen_norm``, both forms) against the unfused PyTorch
                operations BIT FOR BIT at every distinct shape of R101's
@@ -182,8 +190,14 @@ pipeline_two_model,bench,train,train_sharded,eval,autolabel,trace:
                ViTDet-L batch launches the attention kernel 20 times for
                the windowed blocks and 4 times for the global ones, and no
                sync of the device thread lies inside a ``vit.*`` span.
+               Then on the ``mvitv2_t_tile_stream`` cell: a served
+               MViTv2-T batch launches the pooled kernel 7 times for the
+               windowed blocks and 3 times for the global ones and
+               ViTDet's forms 0 times, and no sync of the device thread
+               lies inside an ``mvit.*`` span.
                Each served R101 batch launches the frozen-norm epilogue
-               67 + 33 times, a ViTDet batch 0 times, and no batch launches
+               67 + 33 times, a ViTDet or MViTv2 batch 0 times, and no
+               batch launches
                a counted kernel beyond these and the pooler's.
 11. kernels  — the per-kernel summary line, then the card's name and power
                limit, then the final status line.
@@ -974,6 +988,171 @@ def phase_kernel_relpos(state):
         # bf16 p and output: a few bf16 ulps of the output's largest value
         if not r["finite"] or r["max_abs_err"] > 0.01 * r["out_abs_max"]:
             fail(f"kernel: relpos_attention {kind}: {r}")
+
+
+# --- MViTv2's pooling attention kernel ---------------------------------------
+
+POOLED_BATCH = 10     # the mvitv2_t_tile_stream cell: batch 10 at 1024^2
+# the kernel's edges beside the ten blocks: (name, batch, heads, q side, kv
+# side, q window, kv window (0, 0: global)) -- batch 1, and a global block
+# whose 24 x 24 queries fill no 64-query tile against 12 x 12 keys
+POOLED_EDGES = (("block0_batch_1", 1, 1, 256, 64, 56, 14),
+                ("global_24_against_12", 2, 2, 24, 12, 0, 0))
+
+
+def pooled_blocks():
+    """MViTv2-T's ten blocks at the cell's input, from the port's own model:
+    (heads, q side, kv side, q window, kv window), windows 0 when global."""
+    from treedetection_tpu_torch.models.mask_rcnn import (
+        MaskRCNN, MaskRCNNConfig)
+    model = MaskRCNN(MaskRCNNConfig(backbone="mvit"))
+    side, out = 256, []
+    for block in model.backbone.bottom_up.blocks:
+        a = block.attn
+        hq = -(-side // a.pool_q.stride[0])
+        hk = -(-side // a.pool_k.stride[0])
+        out.append((a.num_heads, hq, hk, a.q_window, a.kv_window))
+        side = hq
+    return out
+
+
+def pooled_bound_ms(b, heads, hq, hk, sq, sk):
+    """The least time of one launch: the larger of its operations (every
+    real query against its window's keys for q.k and p.v, and against the
+    key window's rows and columns for the two bias products) over the bf16
+    peak and its bytes (q, k, v and the output of the maps, both tables)
+    over the memory's, as the benchmark's ``flops_mvit.attention_work``
+    counts them."""
+    c = heads * 96
+    ops = 2 * b * hq * hq * c * (2 * sk * sk + 2 * sk)
+    nbytes = 2 * (b * c * (2 * hq * hq + 2 * hk * hk)
+                  + 2 * (2 * max(sq, sk) - 1) * 96)
+    t_ops = ops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def _pooled_inputs(gen, b, heads, hq, hk, sq, sk):
+    """bf16 q, k, v of std 1.7 (logits scale*q.k of std ~3, as the cell's
+    calibrated weights give them) and tables of std 0.075 (bias terms of
+    std ~1.2)."""
+    import torch
+    from treedetection_tpu_torch.ops.kernels.relpos_attention import (
+        table_rows)
+    n = b * heads
+    rows = table_rows(sq, sk)
+    q, k, v = ((torch.randn(n, side, side, 96, generator=gen, device="cuda")
+                * 1.7).bfloat16() for side in (hq, hk, hk))
+    rh, rw = ((torch.randn(rows, 96, generator=gen, device="cuda")
+               * 0.075).bfloat16() for _ in range(2))
+    return q, k, v, rh, rw
+
+
+def _pooled_library(q, k, v, rh, rw, heads, q_window, kv_window):
+    """The yardstick: ``F.scaled_dot_product_attention`` over the
+    partitioned windows, the decomposed bias materialised as its mask
+    (bf16), the windows put back and q added."""
+    import torch
+    import torch.nn.functional as F
+    from treedetection_tpu_torch.ops.kernels.relpos_attention import (
+        _partition, pooled_rel_index)
+    n, hq, wq, d = q.shape
+    sq, sk = q_window or hq, kv_window or k.shape[1]
+    qp, kp, vp = (_partition(t, s, s) for t, s in ((q, sq), (k, sk),
+                                                   (v, sk)))
+    qq = qp.reshape(-1, sq, sq, d)
+    bh = torch.einsum("nhwc,hkc->nhwk", qq, rh[pooled_rel_index(sq, sk,
+                                                                q.device)])
+    bw = torch.einsum("nhwc,wkc->nhwk", qq, rw[pooled_rel_index(sq, sk,
+                                                                q.device)])
+    mask = (bh[..., :, None] + bw[..., None, :]).reshape(
+        -1, 1, sq * sq, sk * sk)
+    out = F.scaled_dot_product_attention(qp[:, None], kp[:, None],
+                                         vp[:, None], attn_mask=mask)
+    nh = -(-hq // sq)
+    out = out.reshape(n, nh, nh, sq, sq, d).permute(0, 1, 3, 2, 4, 5)
+    out = out.reshape(n, nh * sq, nh * sq, d)[:, :hq, :wq] + q
+    return out.reshape(n // heads, heads, hq, wq, d).permute(
+        0, 2, 3, 1, 4).reshape(n // heads, hq, wq, heads * d)
+
+
+def phase_kernel_pooled(state):
+    """The pooled attention kernel at the ten blocks of the MViTv2 cell
+    (batch 10, bf16) against its plain version in float32 on the same
+    inputs, with its card, alone and plain milliseconds, its bound and the
+    library yardstick; then on ``POOLED_EDGES``."""
+    import torch
+    from treedetection_tpu_torch.ops.kernels import relpos_attention as ra
+    counters = ("relpos.pooled_window", "relpos.pooled_global")
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    cases = [(f"block{i}", POOLED_BATCH) + blk
+             for i, blk in enumerate(pooled_blocks())]
+    cases += [(name, b, heads, hq, hk, qw, kw)
+              for name, b, heads, hq, hk, qw, kw in POOLED_EDGES]
+    rows = {}
+    for name, b, heads, hq, hk, qw, kw in cases:
+        sq, sk = qw or hq, kw or hk
+        q, k, v, rh, rw = _pooled_inputs(gen, b, heads, hq, hk, sq, sk)
+        _launches(reset=True)
+        got = ra.pooled_attention(q, k, v, rh, rw, heads, qw, kw)
+        torch.cuda.synchronize()
+        launched = tuple(_launches(*counters).values())
+        # the plain version in float32 on the same bf16 inputs, over every
+        # image; a global block's materialised logits two images at a time
+        m = b if qw else min(b, 2)
+        err_max = err_sum = out_max = 0.0
+        for i in range(0, b, m):
+            lo, hi = i * heads, min(i + m, b) * heads
+            plain = ra.pooled_attention_reference(
+                q[lo:hi].float(), k[lo:hi].float(), v[lo:hi].float(),
+                rh.float(), rw.float(), heads, qw, kw)
+            err = (got[i:i + m].float() - plain).abs()
+            err_max = max(err_max, float(err.max()))
+            err_sum += float(err.sum())
+            out_max = max(out_max, float(plain.abs().max()))
+            del plain, err
+        row = {"shape": [b, heads, hq, hk, 96], "windows": [qw, kw],
+               "launched": launched, "max_abs_err": err_max,
+               "mean_abs_err": err_sum / got.numel(),
+               "out_abs_max": out_max, "images_checked": b,
+               "finite": bool(torch.isfinite(got).all())}
+        if name.startswith("block"):
+            row["ms"] = _timed_ms(lambda: ra.pooled_attention(
+                q, k, v, rh, rw, heads, qw, kw))
+            row["alone_ms"] = _device_ms(lambda: ra.pooled_attention(
+                q, k, v, rh, rw, heads, qw, kw),
+                "relpos_attention_kernel_pooled")
+            row["plain_ms"] = _timed_ms(lambda: ra.pooled_attention_reference(
+                q[:m * heads], k[:m * heads], v[:m * heads], rh, rw, heads,
+                qw, kw), warmup=1, iters=3)
+            row["plain_images"] = m
+            try:
+                row["library_ms"] = _timed_ms(lambda: _pooled_library(
+                    q, k, v, rh, rw, heads, qw, kw), warmup=1, iters=5)
+            except RuntimeError as exc:     # out of memory: not measured
+                row["library_ms"] = None
+                row["library_error"] = repr(exc)[:300]
+            row["bound_ms"], row["bound_by"] = pooled_bound_ms(
+                b, heads, hq, hk, sq, sk)
+        rows[name] = row
+        emit({"phase": "kernel", "kernel": "pooled_attention", "case": name,
+              "error_reason": "bf16 q, k, v and tables; G = q.R in fp32 "
+                              "from bf16; p rounded to bf16 before p.v; "
+                              "the output with q rounded to bf16 once; "
+                              "against the plain version in float32 on "
+                              "the same inputs", **row})
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    state["pooled"] = rows
+    for name, r in rows.items():
+        want = (1, 0) if r["windows"][0] else (0, 1)
+        if r["launched"] != want:
+            fail(f"kernel: pooled_attention {name}: launches "
+                 f"{r['launched']}, expected {want}")
+        # bf16 p and output: a few bf16 ulps of the output's largest value
+        if not r["finite"] or r["max_abs_err"] > 0.01 * r["out_abs_max"]:
+            fail(f"kernel: pooled_attention {name}: {r}")
 
 
 # --- the ResNet backbone's frozen-norm epilogue ------------------------------
@@ -3957,39 +4136,19 @@ def _seeds_ms(find_crown_seeds, height):
     return statistics.median(times)
 
 
-def phase_trace(state):
-    """``tools/trace_check.py`` over the three pooler layouts in a child
-    process (it switches the sync debug mode and wraps the profiler's
-    classes): each of its lines without the per-site detail, and a failure
-    on its verdict."""
+def _trace_check(cell, layouts, norms, attention):
+    """One ``tools/trace_check.py`` run in a child process (it switches the
+    sync debug mode and wraps the profiler's classes), for ``cell`` or the
+    R101 default: each of its lines without the per-site detail, each
+    served batch's frozen-norm and attention launches into ``norms`` and
+    ``attention``, and a failure on its verdict."""
     cmd = [sys.executable, str(REPO / "tools" / "trace_check.py"),
-           "--parts", "syncs,off", "--layouts", "flat,levels,resident"]
-    t0 = time.time()
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                          timeout=900)
-    verdict, norms = None, {}
-    for text in proc.stdout.splitlines():
-        if not text.startswith("{"):
-            continue
-        line = json.loads(text)
-        if line.get("part") == "verdict":
-            verdict = line
-        if "norm_launches" in line:
-            norms[f"r101/{line['layout']}/batch{line['batch']}"] = \
-                line["norm_launches"]
-        line.pop("sites", None)
-        line.pop("record", None)
-        emit({"phase": "trace", **line})
-    emit({"phase": "trace", "seconds": round(time.time() - t0, 3),
-          "rc": proc.returncode})
-    if proc.returncode != 0 or verdict is None or not verdict["ok"]:
-        fail(f"trace_check: rc {proc.returncode}, "
-             f"{verdict['problems'] if verdict else proc.stderr[-2000:]}")
-    # the ViTDet cell: the attention kernel once a block, no sync in the
-    # backbone
-    cmd = [sys.executable, str(REPO / "tools" / "trace_check.py"),
-           "--cell", "vitdet_l_tile_stream", "--parts", "syncs,off",
-           "--layouts", "flat"]
+           "--parts", "syncs,off", "--layouts", layouts]
+    if cell:
+        cmd += ["--cell", cell]
+    tag = {"vitdet_l_tile_stream": "vitdet",
+           "mvitv2_t_tile_stream": "mvit"}.get(cell, "r101")
+    where = {"cell": cell} if cell else {}
     t0 = time.time()
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                           timeout=900)
@@ -4001,17 +4160,43 @@ def phase_trace(state):
         if line.get("part") == "verdict":
             verdict = line
         if "norm_launches" in line:
-            norms[f"vitdet/{line['layout']}/batch{line['batch']}"] = \
-                line["norm_launches"]
+            batch = f"{tag}/{line['layout']}/batch{line['batch']}"
+            norms[batch] = line["norm_launches"]
+            attention[batch] = line["attention_launches"]
         line.pop("sites", None)
         line.pop("record", None)
-        emit({"phase": "trace", "cell": "vitdet_l_tile_stream", **line})
-    emit({"phase": "trace", "cell": "vitdet_l_tile_stream",
-          "seconds": round(time.time() - t0, 3), "rc": proc.returncode})
+        emit({"phase": "trace", **where, **line})
+    emit({"phase": "trace", **where, "seconds": round(time.time() - t0, 3),
+          "rc": proc.returncode})
     if proc.returncode != 0 or verdict is None or not verdict["ok"]:
-        fail(f"trace_check (vitdet): rc {proc.returncode}, "
+        fail(f"trace_check{f' ({tag})' if cell else ''}: rc "
+             f"{proc.returncode}, "
              f"{verdict['problems'] if verdict else proc.stderr[-2000:]}")
+
+
+def _attention_by_batch(state, counters):
+    """Each served batch's launches on ``counters`` as the ``trace`` phase
+    counted them (None where that phase did not run)."""
+    traced = state.get("trace_attention_launches")
+    if traced is None:
+        return None
+    return {batch: {n: got.get(n, 0) for n in counters}
+            for batch, got in traced.items()}
+
+
+def phase_trace(state):
+    """``tools/trace_check.py`` over the three pooler layouts (R101), then
+    over the ViTDet cell (the attention kernel once a block, no sync in the
+    backbone) and the MViTv2 cell (the pooled kernel once a block, 7
+    windowed and 3 global, neither of ViTDet's forms nor E, no sync in the
+    backbone). Keeps each served batch's frozen-norm and attention
+    launches for the ``kernels`` line."""
+    norms, attention = {}, {}
+    _trace_check(None, "flat,levels,resident", norms, attention)
+    _trace_check("vitdet_l_tile_stream", "flat", norms, attention)
+    _trace_check("mvitv2_t_tile_stream", "flat", norms, attention)
     state["trace_norm_launches"] = norms      # by served batch
+    state["trace_attention_launches"] = attention
 
 
 def phase_autolabel(state, workdir: Path):
@@ -4322,10 +4507,36 @@ def kernels_line(state):
                          else None),
             "bound_ms": sum(per[k] * relpos[k]["bound_ms"] for k in per),
             "max_abs_err": max(r["max_abs_err"] for r in relpos.values()),
-            "per_forward_of": "20 windowed + 4 global launches, batch 10, "
-                              "64 x 64 tokens, 16 heads of 64, bf16",
+            "per_forward_of": "ViT-L's 24 blocks, batch 10, 64 x 64 tokens, "
+                              "16 heads of 64, bf16",
+            "launches_by_path": {"trace": _attention_by_batch(
+                state, ("relpos.window", "relpos.global"))},
             "by_kind": relpos, "edges": state.get("relpos_edges"),
             "ptxas": state.get("relpos_ptxas")})
+    pooled = state.get("pooled")
+    if pooled:
+        blocks = [r for n, r in pooled.items() if n.startswith("block")]
+
+        def total(key):
+            vals = [r.get(key) for r in blocks]
+            return sum(vals) if all(v is not None for v in vals) else None
+
+        kernels.append({
+            "name": "pooled_attention", "number": "A (pooled form)",
+            "route": "cuda",
+            "source": "treedetection_tpu_torch/csrc/relpos_attention.cu",
+            "replaces": None,
+            "replaces_note": "no TPU kernel: MViTv2's pooling attention "
+                             "with q and kv at their own strides, windowed "
+                             "and global (the JAX package has no MViT)",
+            "ms": total("ms"), "alone_ms": total("alone_ms"),
+            "bound_ms": total("bound_ms"), "library_ms": total("library_ms"),
+            "max_abs_err": max(r["max_abs_err"] for r in pooled.values()),
+            "per_forward_of": "MViTv2-T's 10 blocks, batch 10, 1024^2, "
+                              "heads of 96, bf16",
+            "launches_by_path": {"trace": _attention_by_batch(
+                state, ("relpos.pooled_window", "relpos.pooled_global"))},
+            "by_block": pooled})
     norms = state.get("frozen_norm")
     if norms:
         r101 = norms["forwards"]["r101/bfloat16"]
@@ -4422,6 +4633,7 @@ def main() -> None:
             phase_kernel_prep(state)
             phase_kernel_pairwise(state)
             phase_kernel_relpos(state)
+            phase_kernel_pooled(state)
             phase_kernel_frozen_norm(state)
         if "predictor" in phases:
             phase_predictor(state, work)

@@ -23,6 +23,7 @@ from treedetection_tpu_torch import build
 from treedetection_tpu_torch.models import resnet
 from treedetection_tpu_torch.models.resnet import (FrozenBN, ResNetFPN,
                                                    frozen_norm_launches)
+from treedetection_tpu_torch.models.mvit import MViTBackbone
 from treedetection_tpu_torch.models.vit import ViTDetBackbone
 from treedetection_tpu_torch.ops.kernels import frozen_norm as fn
 from treedetection_tpu_torch.ops.kernels import pairwise as k234
@@ -204,6 +205,38 @@ def test_attention_launches_counted_exactly_from_many_threads(fake_card,
             WRAPPER_CALLS)
     _assert_only("relpos.window" if window else "relpos.global",
                  WRAPPER_CALLS)
+
+
+@pytest.mark.parametrize("windows", [(4, 2), (0, 0)],
+                         ids=["pooled_window", "pooled_global"])
+def test_pooled_attention_launches_counted_exactly_from_many_threads(
+        fake_card, windows):
+    d = ra.POOLED_HEAD_DIM
+    q = _card(torch.zeros((1, 4, 4, d), dtype=torch.bfloat16))
+    kv = _card(torch.zeros((1, 2, 2, d), dtype=torch.bfloat16))
+    rows = ra.table_rows(windows[0] or 4, windows[1] or 2)
+    rel = _card(torch.zeros((rows, d), dtype=torch.bfloat16))
+    _hammer(lambda: ra.pooled_attention(q, kv, kv, rel, rel, 1, *windows),
+            WRAPPER_CALLS)
+    _assert_only("relpos.pooled_window" if windows[0]
+                 else "relpos.pooled_global", WRAPPER_CALLS)
+
+
+def test_mvit_forward_on_the_card_launches_the_pooled_kernel_a_block(
+        fake_card):
+    """A four-stage MViT at heads of 96 (stage 2 windowed, the others
+    global): one pooled launch a block, of its kind, and nothing else."""
+    model = _on_card(MViTBackbone(
+        img_size=64, embed_dim=96, depth=4, num_heads=1,
+        last_block_indexes=(0, 1, 2, 3), window=8, kv_stride=4,
+        pretrain_size=64).eval().to(torch.bfloat16))
+    for m in model.modules():      # the tables at the rows read, too
+        for k, b in m._buffers.items():
+            m._buffers[k] = b.as_subclass(_Card)
+    with torch.no_grad():
+        model(_image(64, torch.bfloat16).as_subclass(_Card))
+    assert build.launch_counts() == {"relpos.pooled_window": 1,
+                                     "relpos.pooled_global": 3}
 
 
 def _norm_call(form):

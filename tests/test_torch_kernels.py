@@ -1,7 +1,7 @@
 """K1, K5, K6 (the flat, per-level and image-resident ROIAlign patch poolers),
 the batched pooler's geometry and exact-tail kernels, K2/K3/K4 (the
-pairwise box-relation masks) and the backbone's frozen-norm epilogue on the
-card against their plain versions.
+pairwise box-relation masks), the backbone's frozen-norm epilogue and
+MViTv2's pooled attention on the card against their plain versions.
 
 These tests need an NVIDIA GPU: they carry the ``gpu`` marker and skip
 elsewhere.  On the card: ``python -m pytest tests/test_torch_kernels.py``.
@@ -940,3 +940,66 @@ def test_frozen_norm_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="y must start"):
         fn.frozen_norm_relu(off.as_strided(y.shape, y.stride(), 1), s, s)
     assert launch_counts() == before
+
+
+# (batch, heads, q side, kv side, q window, kv window (0, 0: global)): the
+# pooled attention kernel's forms at small sizes -- windows with pads at
+# q/kv ratios 4, 1 and 1/2, global blocks at 4, 2 and 1/2, key widths in
+# both key-tile forms (16 and 32 tokens a key row), a window of 49 queries
+POOLED_CASES = {
+    "window_ratio_4_pads": (2, 1, 40, 10, 16, 4),
+    "window_ratio_1_pads": (1, 2, 20, 20, 8, 8),
+    "window_ratio_half_pads": (2, 4, 12, 24, 7, 14),
+    "window_of_49": (1, 8, 14, 28, 7, 14),
+    "global_ratio_4": (2, 2, 64, 16, 0, 0),
+    "global_ratio_2_wide_keys": (1, 4, 64, 32, 0, 0),
+    "global_ratio_half": (2, 2, 12, 24, 0, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(POOLED_CASES))
+def test_pooled_attention_matches_plain_version(cuda, case):
+    """bf16 q, k, v and tables; the kernel rounds p to bf16 before p.v and
+    the output (with q) once: a few bf16 ulps of the output's largest
+    value against the plain version in float32 on the same inputs."""
+    from treedetection_tpu_torch.ops.kernels import relpos_attention as rel
+    b, heads, hq, hk, qw, kw = POOLED_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    q, k, v = ((torch.randn(b * heads, s, s, rel.POOLED_HEAD_DIM,
+                            generator=gen, device=cuda) * 1.7).bfloat16()
+               for s in (hq, hk, hk))
+    rows = rel.table_rows(qw or hq, kw or hk)
+    rh, rw = ((torch.randn(rows, rel.POOLED_HEAD_DIM, generator=gen,
+                           device=cuda) * 0.075).bfloat16() for _ in range(2))
+    launch_counts(reset=True)
+    got = rel.pooled_attention(q, k, v, rh, rw, heads, qw, kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["relpos.pooled_window" if qw
+                           else "relpos.pooled_global"] == 1
+    want = rel.pooled_attention_reference(q.float(), k.float(), v.float(),
+                                          rh.float(), rw.float(), heads, qw,
+                                          kw)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert float((got.float() - want).abs().max()) <= \
+        0.01 * float(want.abs().max())
+
+
+def test_pooled_attention_raises_instead_of_falling_back(cuda):
+    from treedetection_tpu_torch.ops.kernels import relpos_attention as rel
+    d = rel.POOLED_HEAD_DIM
+    q = torch.zeros(1, 8, 8, d, device=cuda, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 4, 4, d, device=cuda, dtype=torch.bfloat16)
+    rows = rel.table_rows(8, 4)
+    t = torch.zeros(rows, d, device=cuda, dtype=torch.bfloat16)
+    launch_counts(reset=True)
+    with pytest.raises(ValueError):       # float32 on the card
+        rel.pooled_attention(q.float(), kv.float(), kv.float(), t.float(),
+                             t.float(), 1, 0, 0)
+    with pytest.raises(ValueError):       # head size 64
+        rel.pooled_attention(q[..., :64], kv[..., :64], kv[..., :64],
+                             t[:, :64], t[:, :64], 1, 0, 0)
+    rows3 = rel.table_rows(8, 3)
+    with pytest.raises(ValueError):       # sides 8 and 3: no multiple
+        rel.pooled_attention(q, kv[:, :3, :3], kv[:, :3, :3], t[:rows3],
+                             t[:rows3], 1, 0, 0)
+    assert sum(launch_counts().values()) == 0

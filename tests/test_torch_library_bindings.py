@@ -46,7 +46,7 @@ def test_every_bound_cuda_entry_is_in_its_source():
     bound = {entry: name for name, lib in build.LIBRARIES.items()
              if lib.compiler == "nvcc" for entry in lib.entries}
     assert bound == {entry: lib for entry, (lib, _) in C_ENTRIES.items()}
-    assert len(bound) == 12
+    assert len(bound) == 13
 
 
 @pytest.mark.parametrize("entry", sorted(C_ENTRIES))

@@ -31,9 +31,12 @@ geometry and exact-tail kernels and its layout's patch kernel twice each
 once per bottleneck of a ResNet backbone (``frozen_norm``,
 ``frozen_norm.tail``: 67 and 33 for R101; none for ViTDet), or launches
 any other counted kernel, when a sync of the device thread lies inside a
-ViTDet backbone span (``vit.*``), when a ViTDet batch does not launch the
-attention kernel once per block (``relpos.window``, ``relpos.global``: 20
-and 4 for ViT-L), or when tracing off
+ViTDet or MViTv2 backbone span (``vit.*``, ``mvit.*``), when a ViTDet
+batch does not launch the attention kernel once per block
+(``relpos.window``, ``relpos.global``: 20 and 4 for ViT-L) and no pooled
+one, when an MViTv2 batch does not launch the pooled kernel once per block
+(``relpos.pooled_window``, ``relpos.pooled_global``: 7 and 3 for
+MViTv2-T) and no other, or when tracing off
 enters a ``record_function``, makes a CUDA event beyond the batch's
 arrival events, makes a sync that tracing on does not count, or leaves
 anything in ``TRACE``.  With ``--out``, the Chrome trace, gzipped, there.
@@ -67,7 +70,7 @@ from treedetection_tpu_torch.utils import profiling  # noqa: E402
 
 PACKAGE = str(ROOT / "treedetection_tpu_torch")
 CELL = "r101_tile_stream"
-BACKBONE_PREFIX = "vit."
+BACKBONE_PREFIX = ("vit.", "mvit.")   # the transformer backbones' spans
 DEVICE_THREAD = "td-device"
 LAYOUT_ENV = {"flat": {}, "levels": {"TD_ROI_FLAT": "0"},
               "resident": {"TD_ROI_RESIDENT": "1"}}
@@ -200,9 +203,16 @@ def serve_one(state, k: int = 0) -> int:
 
 
 def _attention_launches(model):
-    """The attention kernel's launches a forward makes, by counter: one a
-    block, windowed or global (none for a ResNet backbone)."""
-    if getattr(model.cfg, "backbone", "resnet") != "vit":
+    """The attention kernels' launches a forward makes, by counter: one a
+    block, windowed or global (ViTDet's ``relpos.*``, MViTv2's
+    ``relpos.pooled_*``; none for a ResNet backbone)."""
+    backbone = getattr(model.cfg, "backbone", "resnet")
+    if backbone == "mvit":
+        blocks = model.backbone.bottom_up.blocks
+        glob = sum(1 for b in blocks if not b.window)
+        return {"relpos.pooled_window": len(blocks) - glob,
+                "relpos.pooled_global": glob}
+    if backbone != "vit":
         return {}
     glob = set(model.cfg.vit_global_blocks) & set(range(model.cfg.vit_depth))
     return {"relpos.window": model.cfg.vit_depth - len(glob),

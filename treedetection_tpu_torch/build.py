@@ -209,7 +209,8 @@ def launch_counts(reset: bool = False) -> Counter[str]:
     counters: ``k1``, ``k5``, ``k6``, ``geometry`` and ``exact_tail`` (the
     pooler), ``iou``, ``containment``, ``dedupe``, ``pairs`` and
     ``pairs.write`` (the pairwise relations and their compaction),
-    ``relpos.window`` and ``relpos.global`` (the attention),
+    ``relpos.window`` and ``relpos.global`` (ViTDet's attention),
+    ``relpos.pooled_window`` and ``relpos.pooled_global`` (MViTv2's),
     ``frozen_norm`` and ``frozen_norm.tail`` (the backbone's norms)."""
     with _load_count_lock:
         counts = collections.Counter(_launches)

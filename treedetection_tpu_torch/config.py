@@ -23,6 +23,12 @@ Differences:
   (``BGR`` by default, ``RGB`` for ViTDet), the channel order the model
   takes, in which ``pixel_mean`` and ``pixel_std`` are given.
   :class:`ModelSpec` carries them beside the JAX package's fields.
+* Likewise Mask R-CNN MViTv2: ``model_backbone: mvit`` with the multiscale
+  transformer's widths (``mvit_*``: ``embed_dim``, ``depth``,
+  ``num_heads``, ``last_block_indexes``, ``adaptive_window_size``,
+  ``adaptive_kv_stride``, ``mlp_ratio``, ``pretrain_size``; the R-FPN
+  heads).  ``models.mask_rcnn.config_from_spec`` carries every width of
+  the spec to the model.
 """
 
 from __future__ import annotations
@@ -342,8 +348,8 @@ class ModelSpec:
     test_resize: str = "fixed"
     resize_shortest_edge: int = 800
     resize_max_size: int = 1333
-    # the port's own: the backbone ("resnet" or "vit": ViTDet), the ViT's
-    # widths, and the model's channel order
+    # the port's own: the backbone ("resnet", "vit": ViTDet, or "mvit":
+    # MViTv2), the transformers' widths, and the model's channel order
     backbone: str = "resnet"
     vit_patch: int = 16
     vit_dim: int = 1024
@@ -352,6 +358,14 @@ class ModelSpec:
     vit_mlp_ratio: float = 4.0
     vit_window: int = 14
     vit_global_blocks: Tuple[int, ...] = (5, 11, 17, 23)
+    mvit_embed_dim: int = 96
+    mvit_depth: int = 10
+    mvit_num_heads: int = 1
+    mvit_last_block_indexes: Tuple[int, ...] = (0, 2, 7, 9)
+    mvit_adaptive_window_size: int = 56
+    mvit_adaptive_kv_stride: int = 4
+    mvit_mlp_ratio: float = 4.0
+    mvit_pretrain_size: int = 224
     input_format: str = "BGR"
 
 
@@ -384,8 +398,8 @@ def model_spec(config: Dict[str, Any]) -> ModelSpec:
 def _backbone_fields(config: Dict[str, Any]) -> Dict[str, Any]:
     """The port's own ModelSpec fields from ``config``."""
     backbone = str(config.get("model_backbone") or "resnet")
-    if backbone not in ("resnet", "vit"):
-        raise ValueError(f"model_backbone must be resnet or vit, got "
+    if backbone not in ("resnet", "vit", "mvit"):
+        raise ValueError(f"model_backbone must be resnet, vit or mvit, got "
                          f"{backbone!r}")
     input_format = str(config.get("input_format") or "BGR").upper()
     if input_format not in ("BGR", "RGB"):
@@ -402,5 +416,16 @@ def _backbone_fields(config: Dict[str, Any]) -> Dict[str, Any]:
         "vit_window": int(config.get("vit_window_size", 14)),
         "vit_global_blocks": tuple(int(i) for i in config.get(
             "vit_global_blocks", (5, 11, 17, 23))),
+        "mvit_embed_dim": int(config.get("mvit_embed_dim", 96)),
+        "mvit_depth": int(config.get("mvit_depth", 10)),
+        "mvit_num_heads": int(config.get("mvit_num_heads", 1)),
+        "mvit_last_block_indexes": tuple(int(i) for i in config.get(
+            "mvit_last_block_indexes", (0, 2, 7, 9))),
+        "mvit_adaptive_window_size": int(config.get(
+            "mvit_adaptive_window_size", 56)),
+        "mvit_adaptive_kv_stride": int(config.get(
+            "mvit_adaptive_kv_stride", 4)),
+        "mvit_mlp_ratio": float(config.get("mvit_mlp_ratio", 4.0)),
+        "mvit_pretrain_size": int(config.get("mvit_pretrain_size", 224)),
         "input_format": input_format,
     }

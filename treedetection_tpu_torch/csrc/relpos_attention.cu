@@ -1,5 +1,6 @@
 // Fused attention with decomposed relative positions, on Hopper (sm_90a):
-// the attention of a ViTDet block, windowed or global, in one launch.
+// the attention of a ViTDet block, windowed or global, in one launch; and,
+// in the pooled form at the end of this file, that of an MViTv2 block.
 //
 // Replaces no TPU kernel: the JAX package has no transformer backbone.  It was
 // added for the ViT-L backbone of Mask R-CNN ViTDet (models/vit.py), whose 24
@@ -949,6 +950,470 @@ int window_smem(int sh, int keys) {
 constexpr int kStreamSmem = 1024 + (3 + 2 * kStages) * kStreamKeys * kRow +
                             2 * 64 * kStreamGs * 4 + (1 + 2 * kStages) * 8;
 
+// -- pooling attention (MViTv2): mma.sync, q and kv at their own strides -----
+//
+// The attention of an MViTv2 block (models/mvit.py): q, k and v each pooled
+// by its own depthwise conv (q at stride 1 or 2, k and v at 1, 2 or 4) and
+// normed, so that the query and key maps differ in size; windows of their
+// own sides on each map (56 queries against 14 keys a side in MViTv2-T's
+// first block) or the whole maps; the decomposed bias with detectron2's
+// index scaling where the sides differ; the pooled q added to the output
+// (residual pooling).  Kernel A's tilings take one map and head size 64.
+//
+// What bounds it.  The blocks whose windows hold 196 keys (blocks 0 and
+// 4-8 of MViTv2-T) do about 100-185 operations a byte of q, k, v and
+// output, below the card's ~295: memory.  The 784-key windows and the
+// global blocks (up to 16384 queries against 1024 keys) do 390-960: the
+// tensor cores.  At head size 96 the softmax and the bias reads cost about
+// as many instructions a logit as the products, as in A.
+//
+// The design.  A block of 128 queries of one window and head, 16 a warp
+// (warps whose queries all lie past the window only load); q, k and v read
+// in place, a row of 96 channels as twelve 16-byte copies (cp.async, zeros
+// off the map or past the window: detectron2's zero pads after the norm);
+// q.k and p.v on mma.sync (m16n8k16, bf16, fp32 accumulators); fp32 online
+// softmax in base 2; the residual q added to the output once, in fp32.
+// Two blocks an SM where the key rows are of 16 tokens (128 registers a
+// thread); one where they are of 32, whose G_w registers would spill at two.
+//
+// The bias.  G, each query's products with the table rows it reads, is
+// computed once a block before the keys: the rows the block's queries
+// read, staged in shared memory, against the queries on the tensor cores
+// (16 rows a step), each product scattered to the (query, key row or
+// column) it biases; G_w[q][kw] and G_h[q][kh] stay in shared memory.  Key
+// tiles are whole rows of kW tokens (the key window's width padded up to
+// 16 or 32: R = 64 / kW rows a tile), so the key of accumulator column
+// c lies in tile row c / kW and column c % kW in every tile: G_w of the
+// thread's columns is loaded into registers once, G_h is one value a tile
+// row; a column past the window's width or a row past its height reads
+// -inf and is masked at no cost, as in A.
+//
+// Head size 96; key sides up to 32, query sides up to 128 (tables of at
+// most 255 rows); on each axis the larger side a multiple of the smaller.
+
+constexpr int kPD = 96;              // head size
+constexpr int kPRow = kPD + 8;       // bf16 of a row in shared memory: 208
+                                     // bytes, so ldmatrix's 8 rows miss
+                                     // each other's banks
+constexpr int kPWarps = 8;
+constexpr int kPQ = 16 * kPWarps;    // queries of a block
+constexpr int kPK = 64;              // keys of a tile
+constexpr int kPThreads = 32 * kPWarps;
+constexpr int kPChunks = kPD / 8;    // 16-byte copies of a row
+constexpr int kPStageRows = 4 * kPK; // rows of the two K and V stages,
+                                     // where the tables are staged first
+constexpr int kPMaxKey = 32;         // largest key side
+constexpr int kPMaxQuery = 128;      // largest query side
+
+struct PooledParams {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const __nv_bfloat16* rel_h;   // (lh, 96)
+  const __nv_bfloat16* rel_w;   // (lw, 96)
+  __nv_bfloat16* out;           // (B, Hq, Wq, heads * 96)
+  int heads, hq, wq, hk, wk;
+  int sqh, sqw, skh, skw, nww;  // window sides (global: the maps)
+  int lh, lw;                   // table rows
+  // table row of (q coordinate c, key coordinate j): c * a - j * b
+  // + (K - 1) * b on each axis (detectron2's index scaling)
+  int ah, bh, aw, bw;
+  int n_tiles;                  // key tiles: ceil(skh / (64 / kW))
+  int gs;                       // floats of a query's row of G (odd)
+  float scale_log2;             // scale * log2 e
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool real) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(real ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a (16 x 16, row) . b (16 x 8, col), bf16 in, fp32 accumulators.
+// Fragments (g = lane / 4, t = lane % 4): c[0..1] row g, columns 2t, 2t + 1;
+// c[2..3] row g + 8.
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragments of the warp's 16 query rows (q0) for channels kk * 16 on
+__device__ __forceinline__ void q_frag(uint32_t (&a)[4],
+                                       const __nv_bfloat16* qs, int q0,
+                                       int kk, int lane) {
+  ldsm_x4(a, qs + (q0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * kPRow +
+                 kk * 16 + (lane >> 4) * 8);
+}
+// B fragments of two n8 tiles (rows r0 .. r0 + 15 of a row-major tile of
+// 96-channel rows: keys or table rows) for channels kk * 16 on:
+// b[0], b[1] the first tile's, b[2], b[3] the second's
+__device__ __forceinline__ void kt_frag(uint32_t (&b)[4],
+                                        const __nv_bfloat16* rows, int r0,
+                                        int kk, int lane) {
+  ldsm_x4(b, rows + (r0 + (lane >> 4) * 8 + (lane & 7)) * kPRow + kk * 16 +
+                 ((lane >> 3) & 1) * 8);
+}
+
+// Rows [0, 128) of the query tile: tokens first, first + 1, ... of the
+// window of sqh x sqw at (y0, x0) of image-head n's q map; zeros off the
+// map or past the window.
+__device__ __forceinline__ void load_queries(__nv_bfloat16* dst,
+                                             const PooledParams& p, int n,
+                                             int y0, int x0, int first,
+                                             int tid) {
+  for (int i = tid; i < kPQ * kPChunks; i += kPThreads) {
+    const int r = i / kPChunks, ch = i - r * kPChunks;
+    const int t = first + r;
+    const int ty = t / p.sqw, tx = t - ty * p.sqw;
+    const int y = y0 + ty, x = x0 + tx;
+    const bool real = ty < p.sqh && y < p.hq && x < p.wq;
+    const __nv_bfloat16* s =
+        real ? p.q + ((static_cast<long long>(n) * p.hq + y) * p.wq + x) *
+                         kPD +
+                   ch * 8
+             : p.q;
+    cp_async16(dst + r * kPRow + ch * 8, s, real);
+  }
+}
+
+// Key tile kt of the window at (y0, x0) of image-head n's kv map: key rows
+// kt * R .. of kW tokens each, from src (k or v); zeros off the map or
+// past the window.
+template <int kW>
+__device__ __forceinline__ void load_keys(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          const PooledParams& p, int n,
+                                          int y0, int x0, int kt, int tid) {
+  constexpr int kR = kPK / kW;
+  for (int i = tid; i < kPK * kPChunks; i += kPThreads) {
+    const int r = i / kPChunks, ch = i - r * kPChunks;
+    const int ky = kt * kR + r / kW, kx = r % kW;
+    const int y = y0 + ky, x = x0 + kx;
+    const bool real = ky < p.skh && kx < p.skw && y < p.hk && x < p.wk;
+    const __nv_bfloat16* s =
+        real ? src + ((static_cast<long long>(n) * p.hk + y) * p.wk + x) *
+                         kPD +
+                   ch * 8
+             : src;
+    cp_async16(dst + r * kPRow + ch * 8, s, real);
+  }
+}
+
+// Table rows [lo8, lo8 + rows) into dst (zeros past the table's end).
+__device__ __forceinline__ void load_table(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* table,
+                                           int length, int lo8, int rows,
+                                           int tid) {
+  for (int i = tid; i < rows * kPChunks; i += kPThreads) {
+    const int r = i / kPChunks, ch = i - r * kPChunks;
+    const bool real = lo8 + r < length;
+    cp_async16(dst + r * kPRow + ch * 8,
+               real ? table + (lo8 + r) * kPD + ch * 8 : table, real);
+  }
+}
+
+// The table rows that queries of coordinates [cmin, cmax] on an axis read
+struct RowRange {
+  int lo8, hi;   // first row rounded down to 8, last row
+};
+__device__ __forceinline__ RowRange row_range(int cmin, int cmax, int K,
+                                              int a, int b) {
+  return {(cmin * a) & ~7, cmax * a + (K - 1) * b};
+}
+
+// G of one axis for the warp's 16 queries: g[row][off + j] = log2 e *
+// q . R[c * a - j * b + (K - 1) * b] for each key coordinate j < K, c the
+// query's coordinate on the axis; rows holds the table from row lo8 on.
+// The warp's rows [wlo8, whi] in steps of 16, each product scattered to
+// the (query, key coordinate) it biases.
+__device__ __forceinline__ void table_bias(const __nv_bfloat16* qs, int q0,
+                                           const __nv_bfloat16* rows,
+                                           int lo8, int K, int a, int b,
+                                           const int (&c)[2], float* g,
+                                           int gs, int off, int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+  const int cmin = __reduce_min_sync(0xffffffffu, min(c[0], c[1]));
+  const int cmax = __reduce_max_sync(0xffffffffu, max(c[0], c[1]));
+  const RowRange w = row_range(cmin, cmax, K, a, b);
+  for (int r0 = w.lo8; r0 <= w.hi; r0 += 16) {
+    float acc[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kPD / 16; ++kk) {
+      uint32_t qa[4], bf[4];
+      q_frag(qa, qs, q0, kk, lane);
+      // rows past the staged ones read shared memory beyond them: their
+      // products are never scattered
+      kt_frag(bf, rows, r0 - lo8, kk, lane);
+      mma16816(acc[0], qa, bf[0], bf[1]);
+      mma16816(acc[1], qa, bf[2], bf[3]);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int num =
+            c[i] * a + (K - 1) * b - (r0 + 8 * u + 2 * tq + (e & 1));
+        if (num >= 0 && num % b == 0 && num / b < K)
+          g[(gq + 8 * i) * gs + off + num / b] = acc[u][e] * kLog2e;
+      }
+  }
+}
+
+template <int kW>
+__global__ void __launch_bounds__(kPThreads, kW == 16 ? 2 : 1)
+    relpos_attention_kernel_pooled(const __grid_constant__ PooledParams p) {
+  constexpr int kR = kPK / kW;     // key rows of a tile
+  constexpr int kJ = kW / 8;       // accumulator column groups a key row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + kPQ * kPRow;    // two stages, then
+  __nv_bfloat16* vs = ks + 2 * kPK * kPRow;
+  __nv_bfloat16* ts = ks;                  // the tables before them
+  float* g_all = reinterpret_cast<float*>(vs + 2 * kPK * kPRow);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int n = blockIdx.z, img = n / p.heads, head = n - img * p.heads;
+  const int wy = blockIdx.y / p.nww, wx = blockIdx.y - wy * p.nww;
+  const int qy0 = wy * p.sqh, qx0 = wx * p.sqw;
+  const int ky0 = wy * p.skh, kx0 = wx * p.skw;
+  const int first = blockIdx.x * kPQ;
+  const int nq = p.sqh * p.sqw;
+  const int q0 = warp * 16;
+  const bool active = first + q0 < nq;   // the warp has a query to answer
+  float* g = g_all + q0 * p.gs;
+
+  // the thread's two query rows: window coordinates (clamped into the
+  // window for the rows past it, which are not written)
+  int cy[2], cx[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = min(first + q0 + gq + 8 * i, nq - 1);
+    cy[i] = t / p.sqw;
+    cx[i] = t - cy[i] * p.sqw;
+  }
+  // G's masked entries: columns past the width, rows past the height
+  for (int i = lane; i < 16 * (kW - p.skw); i += 32) {
+    const int r = i / (kW - p.skw);
+    g[r * p.gs + p.skw + i - r * (kW - p.skw)] = -INFINITY;
+  }
+  const int h_pad = p.n_tiles * kR - p.skh;
+  for (int i = lane; i < 16 * h_pad; i += 32) {
+    const int r = i / h_pad;
+    g[r * p.gs + kW + p.skh + i - r * h_pad] = -INFINITY;
+  }
+
+  // the block's table rows: w from the first query's row to the last's
+  // (every column when the block spans a window row), h for its rows
+  const int last = min(first + kPQ, nq) - 1;
+  const int cy0 = first / p.sqw, cy1 = last / p.sqw;
+  const bool full_rows = cy1 > cy0;
+  const RowRange rw = row_range(full_rows ? 0 : first - cy0 * p.sqw,
+                                full_rows ? p.sqw - 1 : last - cy0 * p.sqw,
+                                p.skw, p.aw, p.bw);
+  const RowRange rh = row_range(cy0, cy1, p.skh, p.ah, p.bh);
+  const int rows_w = rw.hi - rw.lo8 + 1, rows_h = rh.hi - rh.lo8 + 1;
+  const bool together = rows_w + rows_h <= kPStageRows;
+  load_queries(qs, p, n, qy0, qx0, first, tid);
+  load_table(ts, p.rel_w, p.lw, rw.lo8, rows_w, tid);
+  if (together)
+    load_table(ts + rows_w * kPRow, p.rel_h, p.lh, rh.lo8, rows_h, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (active)
+    table_bias(qs, q0, ts, rw.lo8, p.skw, p.aw, p.bw, cx, g, p.gs, 0, lane);
+  if (!together) {
+    __syncthreads();   // the w rows are read
+    load_table(ts, p.rel_h, p.lh, rh.lo8, rows_h, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  if (active)
+    table_bias(qs, q0, together ? ts + rows_w * kPRow : ts, rh.lo8, p.skh,
+               p.ah, p.bh, cy, g, p.gs, kW, lane);
+  __syncthreads();   // the tables are read: the stages take the keys
+  load_keys<kW>(ks, p.k, p, n, ky0, kx0, 0, tid);
+  load_keys<kW>(vs, p.v, p, n, ky0, kx0, 0, tid);
+  cp_async_commit();
+  if (p.n_tiles > 1) {
+    load_keys<kW>(ks + kPK * kPRow, p.k, p, n, ky0, kx0, 1, tid);
+    load_keys<kW>(vs + kPK * kPRow, p.v, p, n, ky0, kx0, 1, tid);
+  }
+  cp_async_commit();
+
+  // G_w of the thread's columns (c % kW = 8 jj + 2 tq + e), for the walk
+  const float* g0 = g + gq * p.gs;
+  const float* g1 = g0 + 8 * p.gs;
+  float gw[2][kJ][2];
+#pragma unroll
+  for (int jj = 0; jj < kJ; ++jj)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      gw[0][jj][e] = g0[8 * jj + 2 * tq + e];
+      gw[1][jj][e] = g1[8 * jj + 2 * tq + e];
+    }
+
+  float o[kPD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kPD / 8; ++j)
+    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < p.n_tiles; ++kt) {
+    if (kt == 0) {
+      cp_async_wait<1>();   // tile 0 (tile 1 may be in flight)
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // tile kt landed; every warp is done with kt - 1
+    if (kt > 0 && kt + 1 < p.n_tiles) {
+      const int st = (kt + 1) & 1;
+      load_keys<kW>(ks + st * kPK * kPRow, p.k, p, n, ky0, kx0, kt + 1, tid);
+      load_keys<kW>(vs + st * kPK * kPRow, p.v, p, n, ky0, kx0, kt + 1, tid);
+      cp_async_commit();
+    }
+    if (!active) continue;
+    const __nv_bfloat16* kst = ks + (kt & 1) * kPK * kPRow;
+    const __nv_bfloat16* vst = vs + (kt & 1) * kPK * kPRow;
+
+    // s = q . k^T over the tile's 64 keys
+    float s[kPK / 8][4];
+#pragma unroll
+    for (int j = 0; j < kPK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kPD / 16; ++kk) {
+      uint32_t qa[4];
+      q_frag(qa, qs, q0, kk, lane);
+#pragma unroll
+      for (int np = 0; np < kPK / 16; ++np) {
+        uint32_t b[4];
+        kt_frag(b, kst, np * 16, kk, lane);
+        mma16816(s[2 * np], qa, b[0], b[1]);
+        mma16816(s[2 * np + 1], qa, b[2], b[3]);
+      }
+    }
+
+    // logits in base 2: scale q.k + G_w (registers) + G_h (a value a key
+    // row); -inf past the window
+    float gh[2][kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      gh[0][r] = g0[kW + kt * kR + r];
+      gh[1][r] = g1[kW + kt * kR + r];
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kPK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float& v = s[j][e];
+        v = fmaf(v, p.scale_log2, gw[i][j % kJ][e & 1]) + gh[i][j / kJ];
+        mx[i] = fmaxf(mx[i], v);
+      }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      // a row whose keys are all masked so far keeps a finite offset
+      const float mu = mx[i] == -INFINITY ? 0.f : mx[i];
+      corr[i] = fast_exp2(m[i] - mu);
+      m[i] = mx[i];
+      mx[i] = mu;
+      l[i] *= corr[i];
+    }
+#pragma unroll
+    for (int j = 0; j < kPK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = fast_exp2(s[j][e] - mx[e >> 1]);
+        l[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int j = 0; j < kPD / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
+
+    // o += p . v, p rounded to bf16 once, 16 keys at a time
+#pragma unroll
+    for (int kk = 0; kk < kPK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < kPD / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, vst + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                                   kPRow +
+                             np * 16 + (lane >> 4) * 8);
+        mma16816(o[2 * np], a, b[0], b[1]);
+        mma16816(o[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  }
+  if (!active) return;
+
+  // o / l + q, for the rows of the window that lie on the map
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + gq + 8 * i;
+    const int t = first + r;
+    const int y = qy0 + cy[i], x = qx0 + cx[i];
+    if (t >= nq || y >= p.hq || x >= p.wq) continue;
+    const float inv = 1.f / l[i];
+    const __nv_bfloat16* qrow = qs + r * kPRow + 2 * tq;
+    __nv_bfloat16* dst =
+        p.out +
+        ((static_cast<long long>(img) * p.hq + y) * p.wq + x) * p.heads * kPD +
+        head * kPD + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < kPD / 8; ++j) {
+      const float2 qv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(qrow + 8 * j));
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          pack_bf16(o[j][2 * i] * inv + qv.x, o[j][2 * i + 1] * inv + qv.y);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1043,6 +1508,108 @@ int td_relpos_attention(const void* qkv, const void* bias, const void* rel_h,
     relpos_attention_kernel_stream<<<grid, kStreamThreads, kStreamSmem, s>>>(
         p);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q (B * heads, Hq, Wq, 96), k and v (B * heads, Hk, Wk, 96), bf16
+// contiguous; rel_h (lh, 96) and rel_w (lw, 96) bf16, at the rows their
+// axes read (2 max(q side, k side) - 1); out (B, Hq, Wq, heads * 96);
+// every pointer 16-byte aligned.  Windows of sqh x sqw over the q map and
+// skh x skw over the kv map, the maps padded up to their multiples, in the
+// same grid (sq = Hq x Wq and sk = Hk x Wk: global attention).  Key sides
+// up to 32, query sides up to 128; on each axis the larger of the q and key
+// sides a multiple of the smaller.  Returns a cudaError_t.
+int td_relpos_attention_pooled(const void* q, const void* k, const void* v,
+                               const void* rel_h, const void* rel_w,
+                               void* out, int maps, int heads, int hq, int wq,
+                               int hk, int wk, int sqh, int sqw, int skh,
+                               int skw, int lh, int lw, float scale,
+                               void* stream) {
+  if (maps == 0 || hq == 0 || wq == 0) return 0;
+  if (maps < 0 || heads < 1 || maps % heads || hq < 0 || wq < 0 || hk < 1 ||
+      wk < 1 || sqh < 1 || sqw < 1 || skh < 1 || skw < 1 || skh > kPMaxKey ||
+      skw > kPMaxKey || sqh > kPMaxQuery || sqw > kPMaxQuery || maps > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nwh = (hq + sqh - 1) / sqh, nww = (wq + sqw - 1) / sqw;
+  if (nwh != (hk + skh - 1) / skh || nww != (wk + skw - 1) / skw ||
+      static_cast<long long>(nwh) * nww > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PooledParams p{};
+  // each axis: c * a - j * b + (K - 1) * b, the larger side a multiple of
+  // the smaller, the table at 2 max - 1 rows
+  int scaling[2][2];
+  const int sides[2][3] = {{sqh, skh, lh}, {sqw, skw, lw}};
+  for (int ax = 0; ax < 2; ++ax) {
+    const int qs = sides[ax][0], ks = sides[ax][1];
+    const int hi = qs > ks ? qs : ks, lo = qs > ks ? ks : qs;
+    if (hi % lo || sides[ax][2] != 2 * hi - 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    scaling[ax][0] = ks >= qs ? ks / qs : 1;
+    scaling[ax][1] = qs >= ks ? qs / ks : 1;
+  }
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.rel_h = static_cast<const __nv_bfloat16*>(rel_h);
+  p.rel_w = static_cast<const __nv_bfloat16*>(rel_w);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.heads = heads;
+  p.hq = hq;
+  p.wq = wq;
+  p.hk = hk;
+  p.wk = wk;
+  p.sqh = sqh;
+  p.sqw = sqw;
+  p.skh = skh;
+  p.skw = skw;
+  p.nww = nww;
+  p.lh = lh;
+  p.lw = lw;
+  p.ah = scaling[0][0];
+  p.bh = scaling[0][1];
+  p.aw = scaling[1][0];
+  p.bw = scaling[1][1];
+  p.scale_log2 = scale * kLog2e;
+  // key tiles of whole rows: the key window's width padded up to kW
+  const int kw = skw <= 16 ? 16 : 32;
+  const int rows = kPK / kw;
+  p.n_tiles = (skh + rows - 1) / rows;
+  p.gs = (kw + p.n_tiles * rows) | 1;
+  const int smem = (kPQ + kPStageRows) * kPRow * 2 + kPQ * p.gs * 4;
+  static bool configured[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < 0 || device >= 64)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (!configured[device]) {   // above 48 KB, once per device
+    const void* kernels[] = {
+        reinterpret_cast<const void*>(relpos_attention_kernel_pooled<16>),
+        reinterpret_cast<const void*>(relpos_attention_kernel_pooled<32>)};
+    const int most = (kPQ + kPStageRows) * kPRow * 2 +
+                     kPQ * ((2 * kPMaxKey) | 1) * 4;
+    for (const void* kern : kernels) {
+      err = cudaFuncSetAttribute(kern,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 most);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    configured[device] = true;
+  }
+  const long long q_tiles =
+      (static_cast<long long>(sqh) * sqw + kPQ - 1) / kPQ;
+  const dim3 grid(static_cast<unsigned>(q_tiles),
+                  static_cast<unsigned>(nwh * nww),
+                  static_cast<unsigned>(maps));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kw == 16)
+    relpos_attention_kernel_pooled<16><<<grid, kPThreads, smem, s>>>(p);
+  else
+    relpos_attention_kernel_pooled<32><<<grid, kPThreads, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

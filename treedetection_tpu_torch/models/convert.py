@@ -29,7 +29,11 @@ unrolled ``res{s}_{i}``), layer norms ``scale``/``bias``, the pyramid's
 deconvs ``deconv1``/``deconv2`` flipped as the mask head's ``deconv``; a
 detectron2 state dict with ``backbone.net.*`` keys is mapped from
 detectron2's own names (``backbone.simfp_{2..5}``, ``rpn_head.conv.conv{i}``,
-the 4conv1fc box head, the heads' ``norm`` LayerNorms).
+the 4conv1fc box head, the heads' ``norm`` LayerNorms).  Mask R-CNN
+MViTv2 (``models/mvit.py``) likewise: ``blocks_{i}`` of ``bottom_up`` in the
+Flax layout (the depthwise pooling kernels (3, 3, 1, D)), and detectron2's
+``backbone.bottom_up.*`` names, which the port's modules keep, with the
+R-FPN heads.
 """
 
 from __future__ import annotations
@@ -307,15 +311,12 @@ def convert_detectron2_state_dict(sd: Mapping[str, Any], depth: int = 101,
                                   fpn_channels: int = 256, box_pool: int = 7
                                   ) -> Dict[str, torch.Tensor]:
     """Map a detectron2 Mask R-CNN state dict to the ``MaskRCNN`` state dict
-    (float32): R-FPN of ``depth``, or ViTDet where it has ``backbone.net.*``
-    keys (its depth and heads read from the keys)."""
+    (float32): R-FPN of ``depth``, ViTDet where it has ``backbone.net.*``
+    keys (its depth and heads read from the keys), or MViTv2 where it has
+    ``backbone.bottom_up.patch_embed.*`` keys (its depth read from them)."""
     if "backbone.net.patch_embed.proj.weight" in sd:
         return _convert_vitdet(sd, fpn_channels, box_pool)
     out: Dict[str, np.ndarray] = {}
-
-    def plain(dst: str, src: str) -> None:
-        out[f"{dst}.weight"] = _to_numpy(sd[f"{src}.weight"])
-        out[f"{dst}.bias"] = _to_numpy(sd[f"{src}.bias"])
 
     def convbn(dst: str, src: str) -> None:
         out[f"{dst}.conv.weight"] = _to_numpy(sd[f"{src}.weight"])
@@ -325,14 +326,30 @@ def convert_detectron2_state_dict(sd: Mapping[str, Any], depth: int = 101,
         out[f"{dst}.norm.scale"] = scale
         out[f"{dst}.norm.bias"] = bias
 
-    convbn("backbone.bottom_up.stem", "backbone.bottom_up.stem.conv1")
-    for stage, n_blocks in enumerate(STAGE_BLOCKS[depth]):
-        for i in range(n_blocks):
-            block = f"backbone.bottom_up.res{stage + 2}.{i}"
-            for conv in ("conv1", "conv2", "conv3"):
-                convbn(f"{block}.{conv}", f"{block}.{conv}")
-            if f"{block}.shortcut.weight" in sd:
-                convbn(f"{block}.shortcut", f"{block}.shortcut")
+    if "backbone.bottom_up.patch_embed.proj.weight" in sd:
+        _mvit_bottom_up(sd, out)
+    else:
+        convbn("backbone.bottom_up.stem", "backbone.bottom_up.stem.conv1")
+        for stage, n_blocks in enumerate(STAGE_BLOCKS[depth]):
+            for i in range(n_blocks):
+                block = f"backbone.bottom_up.res{stage + 2}.{i}"
+                for conv in ("conv1", "conv2", "conv3"):
+                    convbn(f"{block}.{conv}", f"{block}.{conv}")
+                if f"{block}.shortcut.weight" in sd:
+                    convbn(f"{block}.shortcut", f"{block}.shortcut")
+    _rfpn(sd, out, fpn_channels, box_pool)
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+            for k, v in out.items()}
+
+
+def _rfpn(sd: Mapping[str, Any], out: Dict[str, np.ndarray],
+          fpn_channels: int, box_pool: int) -> None:
+    """detectron2's FPN (``backbone.fpn_{lateral,output}{2..5}``) and the
+    R-FPN heads of ``mask_rcnn_fpn``, into ``out``."""
+    def plain(dst: str, src: str) -> None:
+        out[f"{dst}.weight"] = _to_numpy(sd[f"{src}.weight"])
+        out[f"{dst}.bias"] = _to_numpy(sd[f"{src}.bias"])
+
     for lvl in range(2, 6):
         plain(f"backbone.fpn.lateral{lvl}", f"backbone.fpn_lateral{lvl}")
         plain(f"backbone.fpn.output{lvl}", f"backbone.fpn_output{lvl}")
@@ -347,8 +364,24 @@ def convert_detectron2_state_dict(sd: Mapping[str, Any], depth: int = 101,
     for name in ("mask_fcn1", "mask_fcn2", "mask_fcn3", "mask_fcn4", "deconv",
                  "predictor"):
         plain(f"mask_head.{name}", f"roi_heads.mask_head.{name}")
-    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
-            for k, v in out.items()}
+
+
+def _mvit_bottom_up(sd: Mapping[str, Any], out: Dict[str, np.ndarray]
+                    ) -> None:
+    """detectron2's MViT (``backbone.bottom_up``: ``patch_embed.proj``,
+    ``blocks.N.{norm1, attn.qkv, attn.pool_{q,k,v}, attn.norm_{q,k,v},
+    attn.rel_pos_{h,w}, attn.proj, proj, norm2, mlp.fc1, mlp.fc2}``,
+    ``scale{2..5}_norm``), into ``out`` under the same names, each
+    LayerNorm's ``weight`` as ``scale``."""
+    bu = "backbone.bottom_up"
+    for key, value in sd.items():
+        if not key.startswith(f"{bu}."):
+            continue
+        parts = key.split(".")
+        if parts[-1] == "weight" and re.fullmatch(
+                r"norm\d|norm_[qkv]|scale\d_norm", parts[-2]):
+            parts[-1] = "scale"
+        out[".".join(parts)] = _to_numpy(value)
 
 
 def _convert_vitdet(sd: Mapping[str, Any], fpn_channels: int,

@@ -16,9 +16,12 @@ norm and recomputation (``models/resnet.py``); :func:`create_model`
 initialises as Flax does.
 
 ``backbone`` selects the backbone and its heads: ``"resnet"`` (ResNet-FPN
-of ``depth``, the R-FPN heads) or ``"vit"`` (ViTDet: ``models/vit.py``'s
+of ``depth``, the R-FPN heads), ``"vit"`` (ViTDet: ``models/vit.py``'s
 plain ViT and simple feature pyramid at the ``vit_*`` widths, with
-ViTDet's heads, ``VITDET_HEADS``).
+ViTDet's heads, ``VITDET_HEADS``) or ``"mvit"`` (MViTv2:
+``models/mvit.py``'s multiscale transformer and FPN at the ``mvit_*``
+widths, with the R-FPN heads).  :func:`config_from_spec` builds the
+configuration from the serving spec, ``config.ModelSpec``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from treedetection_tpu_torch.build import Library
 from treedetection_tpu_torch.models.anchors import pyramid_anchors
 from treedetection_tpu_torch.models.layers import (
     init_like_flax, set_compute_dtype)
+from treedetection_tpu_torch.models.mvit import MViTBackbone
 from treedetection_tpu_torch.models.resnet import ResNetFPN
 from treedetection_tpu_torch.models.roi_heads import (
     BoxHead, MaskHead, box_inference)
@@ -72,7 +76,8 @@ class MaskRCNNConfig:
     # backbone norm: "frozen" (serving, fine-tuning converted checkpoints) or
     # "batch" (from-scratch training; fold_batch_stats before serving)
     norm: str = "frozen"
-    # "resnet" or "vit" (ViTDet); the ViT's widths and ViTDet's heads
+    # "resnet", "vit" (ViTDet: the ViT's widths, ViTDet's heads) or
+    # "mvit" (MViTv2: its widths, the R-FPN heads)
     backbone: str = "resnet"
     vit_patch: int = 16
     vit_dim: int = 1024
@@ -81,6 +86,14 @@ class MaskRCNNConfig:
     vit_mlp_ratio: float = 4.0
     vit_window: int = 14
     vit_global_blocks: Tuple[int, ...] = (5, 11, 17, 23)
+    mvit_embed_dim: int = 96
+    mvit_depth: int = 10
+    mvit_num_heads: int = 1
+    mvit_last_block_indexes: Tuple[int, ...] = (0, 2, 7, 9)
+    mvit_adaptive_window_size: int = 56
+    mvit_adaptive_kv_stride: int = 4
+    mvit_mlp_ratio: float = 4.0
+    mvit_pretrain_size: int = 224
 
     @property
     def dtype(self) -> torch.dtype:
@@ -119,6 +132,15 @@ class MaskRCNN(nn.Module):
                 num_heads=cfg.vit_heads, mlp_ratio=cfg.vit_mlp_ratio,
                 window=cfg.vit_window,
                 global_blocks=cfg.vit_global_blocks)
+        elif cfg.backbone == "mvit":
+            self.backbone = MViTBackbone(
+                img_size=cfg.input_size, embed_dim=cfg.mvit_embed_dim,
+                depth=cfg.mvit_depth, num_heads=cfg.mvit_num_heads,
+                last_block_indexes=cfg.mvit_last_block_indexes,
+                mlp_ratio=cfg.mvit_mlp_ratio,
+                window=cfg.mvit_adaptive_window_size,
+                kv_stride=cfg.mvit_adaptive_kv_stride,
+                pretrain_size=cfg.mvit_pretrain_size)
         else:
             raise ValueError(f"unknown backbone {cfg.backbone!r}")
         heads = VITDET_HEADS if cfg.backbone == "vit" else RFPN_HEADS
@@ -229,3 +251,24 @@ def create_model(cfg: Optional[MaskRCNNConfig] = None,
     model = MaskRCNN(cfg)
     init_like_flax(model, generator)
     return model
+
+
+# ModelSpec fields that MaskRCNNConfig takes under another name, and those
+# of the same name that mean something else there (the spec's ``bf16`` is
+# the serving dtype; the configuration's, training's compute dtype)
+_SPEC_RENAMED = {"pre_nms_topk": "rpn_pre_nms_topk",
+                 "post_nms_topk": "rpn_post_nms_topk"}
+_SPEC_NOT_TAKEN = {"bf16"}
+
+
+def config_from_spec(spec) -> MaskRCNNConfig:
+    """The model configuration that serves ``spec`` (a ``config.ModelSpec``):
+    every field the two share by name (the backbone's widths among them),
+    the RPN's top-k under their own names, the mask pool from the mask
+    resolution; the rest at their defaults."""
+    names = {f.name for f in dataclasses.fields(MaskRCNNConfig)}
+    kwargs = {_SPEC_RENAMED.get(f.name, f.name): getattr(spec, f.name)
+              for f in dataclasses.fields(spec)
+              if f.name not in _SPEC_NOT_TAKEN
+              and _SPEC_RENAMED.get(f.name, f.name) in names}
+    return MaskRCNNConfig(mask_pool=spec.mask_resolution // 2, **kwargs)

@@ -60,7 +60,7 @@ from treedetection_tpu_torch.config import model_spec
 from treedetection_tpu_torch.geo import Affine, GeoTiff
 from treedetection_tpu_torch.models.convert import load_checkpoint
 from treedetection_tpu_torch.models.mask_rcnn import (
-    STAGES, MaskRCNN, MaskRCNNConfig, ModelOutput)
+    STAGES, MaskRCNN, MaskRCNNConfig, ModelOutput, config_from_spec)
 from treedetection_tpu_torch.native import resize_threshold_mask, trace_contours
 from treedetection_tpu_torch.ops.image import normalize_image, resize_bilinear
 from treedetection_tpu_torch.ops.roi_align import report_overflow_host
@@ -236,28 +236,7 @@ class Predictor:
         self.spec = spec
         self.devices = make_mesh(config)
         self.device = self.devices[0]
-        self.cfg = model_cfg or MaskRCNNConfig(
-            depth=spec.depth,
-            num_classes=spec.num_classes,
-            input_size=spec.input_size,
-            score_threshold=spec.score_threshold,
-            nms_threshold=spec.nms_threshold,
-            rpn_pre_nms_topk=spec.pre_nms_topk,
-            rpn_post_nms_topk=spec.post_nms_topk,
-            rpn_nms_threshold=spec.rpn_nms_threshold,
-            max_detections=spec.max_detections,
-            mask_pool=spec.mask_resolution // 2,
-            anchor_sizes=spec.anchor_sizes,
-            anchor_ratios=spec.anchor_ratios,
-            backbone=spec.backbone,
-            vit_patch=spec.vit_patch,
-            vit_dim=spec.vit_dim,
-            vit_depth=spec.vit_depth,
-            vit_heads=spec.vit_heads,
-            vit_mlp_ratio=spec.vit_mlp_ratio,
-            vit_window=spec.vit_window,
-            vit_global_blocks=spec.vit_global_blocks,
-        )
+        self.cfg = model_cfg or config_from_spec(spec)
         self.dtype = (torch.bfloat16 if spec.bf16 and self.device.type != "cpu"
                       else torch.float32)
         with torch.random.fork_rng(devices=[]):
